@@ -5,23 +5,36 @@
 
 Phases, each printing its own line(s); any failure raises and exits non-zero:
 1. device: the card's name, `nvidia-smi` name and power limit, TF32 off;
-2. build: nvcc builds the three CUDA kernels (sm_90a) and g++ the host
+2. build: nvcc builds the four CUDA kernels (sm_90a) and g++ the host
    staging library, from the sources in this checkout;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   same inputs on the card, at the main path's shapes and at ragged shapes,
-   with the kernel's time, the plain version's time and the bound;
+   same inputs on the card, at the shapes of the two paths below and at
+   ragged shapes with exact ties, with the kernel's time, the plain
+   version's time and the bound (B1 at both paths' k, B4 also at
+   configs/subt_mrs.yaml's shapes);
 4. main path: `LIOPipeline(configs/tpu_plane.yaml)` on 3 warm-up + 20 timed
    frames of the bench sequence (32,000-point scans of
    SyntheticWorld(extent=80, n_walls=24, n_boxes=16, seed=7)), with each
    kernel's launch count checked against what the path must make, every
    frame aligned and ATE against ground truth under 0.2 m; then the cost of
-   the host-side early-stop check per iteration, and with `--profile` a
-   torch.profiler trace of 5 more frames (device-busy share, kernels by
-   device time).
-The last lines are the kernel table as JSON, the line `nvidia-smi
---query-gpu=name,power.limit --format=csv,noheader` prints, and
-{"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
-no result. It imports nothing of JAX or of the JAX package.
+   the host-side early-stop check per iteration;
+5. GEODE-Alpha path: `LIOPipeline(configs/geode_alpha.yaml)` (the ESKF
+   with IMU propagation and the point-to-point residual, kernels B1, B4,
+   B3) on 3 warm-up + 20 timed frames of the JAX package's `cli demo`
+   recipe (32,000-point scans of SyntheticWorld(extent=60, seed=7) along a
+   trajectory that ramps up from rest, synthetic IMU samples fed before
+   each scan), with the launch counts, every frame aligned, a non-zero
+   Kalman gain and ATE under the limit taken from the JAX package's own run
+   (GEODE_ATE_LIMIT below).
+Each path's launch counts are set to 0 just before it and read just after.
+With `--profile`, a torch.profiler trace of 5 more frames of each path
+(device-busy share, kernels by device time).
+The last lines are the kernel table as JSON (`launches` summed over the two
+paths), the line `nvidia-smi --query-gpu=name,power.limit
+--format=csv,noheader` prints, and {"ok": true, "device": {...}}. Without a
+CUDA device it exits 2 and prints no result. It imports nothing of JAX or of
+the JAX package. The whole run takes well under its 1200 s limit; if it ever
+does not, the main path is to be cut in depth, not the GEODE-Alpha path.
 """
 
 from __future__ import annotations
@@ -41,6 +54,12 @@ sys.path.insert(0, ROOT)
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 WARMUP, TIMED = 3, 20
+# The JAX package's own LIOPipeline on the GEODE-Alpha path's 23 frames, in
+# float32 on the CPU (tests/test_torch_geode_reference.py, run as a
+# script), reached this ATE [m]; the port on the card must stay under
+# max(1.5 ATE, ATE + 0.05 m).
+GEODE_JAX_ATE = 0.05608570797270728
+GEODE_ATE_LIMIT = max(1.5 * GEODE_JAX_ATE, GEODE_JAX_ATE + 0.05)
 
 
 def nvidia_smi_line() -> str:
@@ -107,6 +126,22 @@ def bench_sequence(n_frames: int):
     scans = [world.scan_at(rng, rots[i], trans[i], n_points=32000, max_range=75.0)
              for i in range(n_frames)]
     return times, rots, trans, scans
+
+
+def geode_sequence(n_frames: int, n_points: int = 32000):
+    """The JAX package's `cli demo` recipe: scans, ground truth and IMU
+    samples (t, acc, gyro) at the frame stamps."""
+    from svnicp_tpu_torch.core.imu import GRAVITY
+    from svnicp_tpu_torch.io import datasets
+
+    world = datasets.SyntheticWorld(extent=60.0, seed=7)
+    times, rots, trans = datasets.synthetic_trajectory(
+        n_frames, dt=0.1, speed=1.5, seed=7, ramp_seconds=1.0)
+    rng = np.random.default_rng(7)
+    scans = [world.scan_at(rng, rots[i], trans[i], n_points=n_points)
+             for i in range(n_frames)]
+    return times, rots, trans, scans, datasets.synthetic_imu(times, rots, trans,
+                                                             GRAVITY)
 
 
 # ------------------------------------------------------------------ B1 inputs
@@ -180,19 +215,20 @@ def check_stage1(name, src, sv, tgt, tv, k, rows):
 
 # ------------------------------------------------------------------ B2 inputs
 
-def tied_moments_inputs(p, b, k, dev, seed):
-    """Synthetic operands with exact ties: candidate k of point b sits
-    0.1 + 0.1 k m from the point at the guess, particles perturb the guess
-    by ~1 mm (and 1e-5 rad), a sixth of the points have all candidates
-    beyond the gate and ~8% of the candidate slots are invalid. Then
-    candidate 1 takes candidate 0's score features, so the two tie at the
-    minimum wherever candidate 0 is valid, but keeps an n.q 5 cm larger:
-    the tie-averaged n.q differs from either one's."""
+def tied_moments_inputs(icp, p, b, k, dev, seed):
+    """Synthetic operands with exact ties, prepared as `icp`'s residual is
+    on its path (plane fits for B2, K padded to a multiple of 8): candidate
+    k of point b sits 0.1 + 0.1 k m from the point at the guess, particles
+    perturb the guess by ~1 mm (and 1e-5 rad), a sixth of the points have
+    all candidates beyond the gate and ~8% of the candidate slots are
+    invalid. Then candidate 1 takes candidate 0's score features, so the two
+    tie at the minimum wherever candidate 0 is valid, but keeps the first
+    row of the averaged operand 5 cm larger (n.q for B2, x for B4): the
+    tie-averaged answer differs from either one's."""
     import torch
 
     from svnicp_tpu_torch.core import geometry as geo
     from svnicp_tpu_torch.core import svn
-    from svnicp_tpu_torch.kernels import nn
 
     g = torch.Generator().manual_seed(seed)
     src = (torch.rand((b, 3), generator=g) - 0.5) * 60.0
@@ -204,24 +240,24 @@ def tied_moments_inputs(p, b, k, dev, seed):
     cand = src[:, None, :] + dirs * radius[..., None]
     cvalid = torch.rand((b, k), generator=g) > 0.08
     cvalid[b // 6: b // 6 + 3] = False
-    normals = torch.randn((b, 3), generator=g)
-    normals = normals / normals.norm(dim=-1, keepdim=True)
     valid = torch.rand(b, generator=g) > 0.1
     xi = torch.randn((p, 6), generator=g) * torch.tensor([1e-3] * 3 + [1e-5] * 3)
     r = geo.so3_exp(xi[:, 3:])
     params = torch.cat([r.reshape(p, 9), xi[:, :3]], dim=-1)
-    src, cand, cvalid, normals, valid, params = (
-        x.to(dev) for x in (src, cand, cvalid, normals, valid, params))
-    feat, bias = svn.correspondence_features(src, cand, cvalid)
-    prep = nn.prepare_moments_plane(feat, bias, cand, src, normals, valid)
+    src, cand, cvalid, valid, params = (
+        x.to(dev) for x in (src, cand, cvalid, valid, params))
+    prep = svn._prepare_align(icp, src, valid, cand, cvalid)
     prep.feat13[:, 1] = prep.feat13[:, 0]
-    prep.ndotc[1] = prep.ndotc[0] + 0.05
+    avg = prep.averaged
+    avg[..., 1, :] = avg[..., 0, :]
+    avg.view(-1, *avg.shape[-2:])[0, 1] += 0.05
     return params.contiguous(), prep
 
 
 def main_path_moments_inputs(icp, src, sv, tgt, tv, dev):
-    """The main path's own operands: the stage-1 candidates of the B1
-    inputs, their plane fits, and 64 particles drawn in the prior box."""
+    """A path's own operands: the stage-1 candidates of the B1 inputs at the
+    path's k, the path's prep (plane fits for B2, K padded to a multiple of
+    8 for both) and the path's P particles drawn in the prior box."""
     import torch
 
     from svnicp_tpu_torch.core import geometry as geo
@@ -230,7 +266,7 @@ def main_path_moments_inputs(icp, src, sv, tgt, tv, dev):
 
     p = icp.particle_count
     cand, d2 = nn.bucketed_candidates(src, tgt, sv, tv, icp.knn_count)
-    prep = svn._prepare_align(src, sv, cand, torch.isfinite(d2))
+    prep = svn._prepare_align(icp, src, sv, cand, torch.isfinite(d2))
     g = torch.Generator().manual_seed(4)
     lo, hi = torch.tensor(icp.init_lb), torch.tensor(icp.init_ub)
     draw = lo + (hi - lo) * torch.rand((p, 6), generator=g)
@@ -238,48 +274,61 @@ def main_path_moments_inputs(icp, src, sv, tgt, tv, dev):
     return params.to(dev).contiguous(), prep
 
 
+def _double(prep):
+    return type(prep)(*(x.double() for x in prep))
+
+
+def _first_index(prep):
+    """The float64 prep whose answer a first-index tie rule gives: candidate
+    1 (tied with candidate 0) carries candidate 0's averaged values."""
+    first = _double(prep)
+    first.averaged[..., 1, :] = first.averaged[..., 0, :]
+    return first
+
+
 def check_moments(name, params, prep, max_dist, rows, ties=False):
-    """Kernel vs plain on the same operands, both held to the plain version
-    run in float64: the kernel's largest error in H (and in b) must be at
-    most twice the float32 plain version's, plus 1e-7 of the largest entry.
-    A fixed rtol does not fit b: each term is w r g with the plane residual
-    r = n.(T s) - n.q, a difference of two numbers of the size of |s|, so in
-    float32 both versions carry ~1e-5 relative error in r, and b sums such
-    terms of both signs. The kernel sums its tiles in a fixed order, so a
-    repeat run must give the same bits. With `ties` (candidates 0 and 1
-    tied, see tied_moments_inputs) the kernel's b must also lie ten times
-    farther from the first-index answer than from the tie-averaged one."""
+    """Kernel vs plain on the same operands (B2 or B4, by the prep's type),
+    both held to the plain version run in float64: the kernel's largest
+    error in H (and in b) must be at most twice the float32 plain
+    version's, plus 1e-7 of the largest entry. A fixed rtol does not fit b:
+    each term carries a residual that is a difference of two numbers of the
+    size of |s| (n.(T s) - n.q, or T s - q), so in float32 both versions
+    carry ~1e-5 relative error in it, and b sums such terms of both signs.
+    The kernel sums its tiles in a fixed order, so a repeat run must give
+    the same bits. With `ties` (candidates 0 and 1 tied, see
+    tied_moments_inputs) the kernel's b must also lie ten times farther from
+    the first-index answer than from the tie-averaged one."""
     import torch
 
     from svnicp_tpu_torch.kernels import nn
 
-    h_k, b_k = nn.plane_moments(params, prep, max_dist)
+    kernel, plain = nn.MOMENTS[type(prep)]
+    key = next(k for k, v in KERNELS.items() if v[0] == f"nn.{kernel.__name__}")
+    label = f"{key} {kernel.__name__}"
+    h_k, b_k = nn.moments(params, prep, max_dist)
     torch.cuda.synchronize()
-    h_p, b_p = nn.plane_moments_plain(params, prep, max_dist)
-    h_k2, b_k2 = nn.plane_moments(params, prep, max_dist)
+    h_p, b_p = plain(params, prep, max_dist)
+    h_k2, b_k2 = nn.moments(params, prep, max_dist)
     assert torch.equal(h_k, h_k2) and torch.equal(b_k, b_k2), \
-        f"{name}: B2 is not deterministic"
-    h64, b64 = nn.plane_moments_plain(
-        params.double(), nn.MomentsPrep(*(x.double() for x in prep)), max_dist)
+        f"{name}: {label} is not deterministic"
+    h64, b64 = plain(params.double(), _double(prep), max_dist)
 
     def err(a, ref):
         return (a.double() - ref).abs().max().item()
 
     ek_h, ep_h, ek_b, ep_b = err(h_k, h64), err(h_p, h64), err(b_k, b64), err(b_p, b64)
     abs_err = max((h_k - h_p).abs().max().item(), (b_k - b_p).abs().max().item())
-    print(f"kernel B2 plane_moments {name}: max|kernel-plain| {abs_err:.3g}; "
+    print(f"kernel {label} {name}: max|kernel-plain| {abs_err:.3g}; "
           f"max error vs float64: H kernel {ek_h:.3g} plain {ep_h:.3g} "
           f"(max|H| {h64.abs().max().item():.3g}), b kernel {ek_b:.3g} plain "
           f"{ep_b:.3g} (max|b| {b64.abs().max().item():.3g}); repeat run bit-identical")
-    assert ek_h <= 2 * ep_h + 1e-7 * h64.abs().max().item(), f"{name}: B2 H"
-    assert ek_b <= 2 * ep_b + 1e-7 * b64.abs().max().item(), f"{name}: B2 b"
+    assert ek_h <= 2 * ep_h + 1e-7 * h64.abs().max().item(), f"{name}: {label} H"
+    assert ek_b <= 2 * ep_b + 1e-7 * b64.abs().max().item(), f"{name}: {label} b"
     if ties:
-        first = nn.MomentsPrep(*(x.double() for x in prep))
-        first.ndotc[1] = first.ndotc[0]
-        e_first = err(b_k, nn.plane_moments_plain(params.double(), first, max_dist)[1])
-        print(f"kernel B2 plane_moments {name}: b is {e_first:.3g} from the "
+        e_first = err(b_k, plain(params.double(), _first_index(prep), max_dist)[1])
+        print(f"kernel {label} {name}: b is {e_first:.3g} from the "
               f"first-index answer, {ek_b:.3g} from the tie-averaged one")
-        assert e_first > 10 * ek_b, f"{name}: B2 does not average ties"
+        assert e_first > 10 * ek_b, f"{name}: {label} does not average ties"
     rows.append(abs_err)
     return abs_err
 
@@ -360,7 +409,84 @@ def early_stop_cost(cfg, src, sv, tgt, tv, dev) -> float:
     return per_iter
 
 
-def profile_frames(cfg, times, scans, first: int, count: int) -> None:
+KERNELS = {  # key: (wrapper path in the port, JSON name, source, TPU kernel)
+    "B1": ("nn.bucketed_candidates", "stage1_candidates",
+           "svnicp_tpu_torch/csrc/stage1.cu", "svnicp_tpu/kernels/nn_pallas.py:563"),
+    "B2": ("nn.plane_moments", "plane_moments",
+           "svnicp_tpu_torch/csrc/plane_moments.cu", "svnicp_tpu/kernels/nn_pallas.py:412"),
+    "B3": ("stein.stein_update", "stein_update",
+           "svnicp_tpu_torch/csrc/stein.cu", "svnicp_tpu/kernels/stein_pallas.py:227"),
+    "B4": ("nn.point_moments", "point_moments",
+           "svnicp_tpu_torch/csrc/point_moments.cu", "svnicp_tpu/kernels/nn_pallas.py:254"),
+}
+
+
+def _wrapper(key):
+    from svnicp_tpu_torch.kernels import nn, stein
+
+    mod, name = KERNELS[key][0].split(".")
+    return getattr({"nn": nn, "stein": stein}[mod], name)
+
+
+def feed(pipe, frames, lo: int, hi: int) -> None:
+    """Feed frames lo..hi-1, each (t, scan, imu sample or None): the IMU
+    sample first, as a sensor stream delivers it before the scan it ends."""
+    for t, scan, imu in frames[lo:hi]:
+        if imu is not None:
+            pipe.feed_imu(*imu)
+        pipe.feed_scan(float(t), scan)
+
+
+def run_path(cfg, frames):
+    """A fresh LIOPipeline on the card over WARMUP + TIMED frames, with every
+    kernel's launch count set to 0 just before and read just after ->
+    (pipeline, timed wall seconds, launches)."""
+    import torch
+
+    from svnicp_tpu_torch.runtime import pipeline as pl
+
+    pipe = pl.LIOPipeline(cfg, device="cuda")
+    for key in KERNELS:
+        _wrapper(key).launches = 0
+    feed(pipe, frames, 0, WARMUP)
+    pipe.flush()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feed(pipe, frames, WARMUP, WARMUP + TIMED)
+    pipe.flush()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    pipe.close()
+    return pipe, dt, {key: _wrapper(key).launches for key in KERNELS}
+
+
+def report_path(name, pipe, dt, launches, rots, trans, smi) -> float:
+    """Print a path's frames/s, iterations, align_ok, ATE and launches and
+    check what every path must show -> ATE [m]."""
+    from svnicp_tpu_torch.io import metrics
+
+    n = WARMUP + TIMED
+    outs = pipe.outputs
+    iters = [o.icp_iterations for o in outs]
+    traj = pipe.trajectory()
+    gt = np.tile(np.eye(4), (n, 1, 1))
+    gt[:, :3, :3] = rots
+    gt[:, :3, 3] = trans
+    ate = metrics.ate_rmse(traj, gt)
+    print(f"{name}: {TIMED / dt:.2f} frames/s over {TIMED} timed frames "
+          f"(32,000-point scans) [{smi}]")
+    print(f"iterations per frame: {iters}")
+    print(f"align_ok per frame: {[o.align_ok for o in outs]}")
+    print(f"ATE {ate:.4f} m over {n} frames; launches {launches}; "
+          f"stage times {pipe.timer.report()}")
+    assert len(outs) == n, len(outs)
+    assert launches["B1"] == n - 1, launches
+    assert all(o.align_ok for o in outs)
+    assert np.isfinite(traj).all()
+    return ate
+
+
+def profile_frames(cfg, frames, first: int, count: int) -> None:
     """torch.profiler over `count` frames of a fresh pipeline (after `first`
     warm-up frames): device-busy share of the window and kernels by time."""
     import torch
@@ -370,14 +496,12 @@ def profile_frames(cfg, times, scans, first: int, count: int) -> None:
     from svnicp_tpu_torch.runtime import pipeline as pl
 
     pipe = pl.LIOPipeline(cfg, device="cuda")
-    for i in range(first):
-        pipe.feed_scan(float(times[i]), scans[i])
+    feed(pipe, frames, 0, first)
     pipe.flush()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(first, first + count):
-            pipe.feed_scan(float(times[i]), scans[i])
+        feed(pipe, frames, first, first + count)
         pipe.flush()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -392,6 +516,29 @@ def profile_frames(cfg, times, scans, first: int, count: int) -> None:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
+def moments_bound(params, prep, k: int, point_floats: int, slot_ops: float,
+                  point_ops: float) -> tuple[float, str]:
+    """What a moments function (B2, B4) needs, not the kernels' operand
+    layout (13 prepared floats per slot). In the coordinate form
+    score = |c|^2 - 2 c.(T s) it reads each of the k stage-1 candidate slots
+    of a point once (3 coordinates and a validity byte), `point_floats`
+    floats and a mask byte per point and the particles, and writes H and b.
+    Operations, counted where the work lies (points the mask keeps, valid
+    slots of those): 8 per (particle, slot) for the score, `slot_ops` per
+    slot once for all particles (|c|^2, and n.c for B2), 15 per (particle,
+    point) for T s and `point_ops` for the tie average, residual, weight
+    and moments."""
+    import torch
+
+    p, b = params.shape[0], prep.vmask.shape[0]
+    kept = prep.vmask > 0
+    n_slots = int((torch.isfinite(prep.feat13[12]) & kept).sum())
+    n_pts = int(kept.sum())
+    nbytes = b * k * (3 * 4 + 1) + b * (point_floats * 4 + 1) + p * (12 + 42) * 4
+    flops = p * (8.0 * n_slots + (15.0 + point_ops) * n_pts) + slot_ops * n_slots
+    return bound_ms(flops, nbytes)
+
+
 def main() -> int:
     import argparse
 
@@ -399,8 +546,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace 5 frames with torch.profiler and print the "
-                         "device-busy share and the kernels by device time")
+                    help="also trace 5 frames of each path with torch.profiler "
+                         "and print the device-busy share and the kernels by "
+                         "device time")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -408,9 +556,8 @@ def main() -> int:
         return 2
     from svnicp_tpu_torch import config as cfg_mod
     from svnicp_tpu_torch import resolve_device
-    from svnicp_tpu_torch.io import metrics, native
+    from svnicp_tpu_torch.io import native
     from svnicp_tpu_torch.kernels import _build, nn, stein
-    from svnicp_tpu_torch.runtime import pipeline as pl
 
     # ---- 1. device
     dev = resolve_device("cuda")
@@ -425,54 +572,95 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     native.library()
-    print(f"build: 3 CUDA kernels (nvcc sm_90a, in parallel) + host staging "
-          f"(g++) in {time.perf_counter() - t0:.1f} s")
+    print(f"build: {len(_build.CUDA_SOURCES)} CUDA kernels (nvcc sm_90a, in "
+          f"parallel) + host staging (g++) in {time.perf_counter() - t0:.1f} s")
     for src, log in sorted(_build.build_log.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}")
 
     cfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "tpu_plane.yaml"))
+    gcfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "geode_alpha.yaml"))
+    scfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "subt_mrs.yaml"))
     n_frames = WARMUP + TIMED
     times, rots, trans, scans = bench_sequence(n_frames)
-    icp = cfg.icp
+    gtimes, grots, gtrans, gscans, gimu = geode_sequence(n_frames)
+    icp, gicp = cfg.icp, gcfg.icp
     p, k = icp.particle_count, icp.knn_count
 
     # ---- 3. kernels vs plain
     table = {}
-    errs = {"B1": [], "B2": [], "B3": []}
+    errs = {key: [] for key in KERNELS}
     src, sv, tgt, tv = stage1_inputs(cfg, scans, dev)
     check_stage1(f"main B={src.shape[0]} Nt={tgt.shape[0]} k={k}",
                  src, sv, tgt, tv, k, errs["B1"])
+    gsrc, gsv, gtgt, gtv = stage1_inputs(gcfg, gscans, dev)
+    gk = gicp.knn_count
+    check_stage1(f"geode B={gsrc.shape[0]} Nt={gtgt.shape[0]} k={gk}",
+                 gsrc, gsv, gtgt, gtv, gk, errs["B1"])
     g = torch.Generator().manual_seed(3)
     rs = torch.randn((300, 3), generator=g).mul(20).to(dev)
     rt = torch.randn((5000, 3), generator=g).mul(20).to(dev)
     check_stage1("ragged B=300 Nt=5000 k=12", rs, torch.rand(300, generator=g).to(dev) > 0.1,
                  rt, torch.rand(5000, generator=g).to(dev) > 0.2, 12, errs["B1"])
-    n_src, n_tgt = int(sv.sum()), int(tv.sum())
-    call = cuda_time_ms(lambda: nn.bucketed_candidates(src, tgt, sv, tv, k), 20)
-    ms = device_ms(lambda: nn.bucketed_candidates(src, tgt, sv, tv, k), 20,
-                   ["stage1_kernel"])
-    plain = device_ms(lambda: nn.bucketed_candidates_plain(src, tgt, sv, tv, k), 5)
-    b_ms, b_by = bound_ms(8.0 * n_src * n_tgt,
-                          src.numel() * 4 + sv.numel() + tgt.numel() * 4 + tv.numel()
-                          + src.shape[0] * k * 16)
-    table["B1"] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+
+    def time_stage1(s_, sv_, t_, tv_, k_):
+        n_src, n_tgt = int(sv_.sum()), int(tv_.sum())
+        call = cuda_time_ms(lambda: nn.bucketed_candidates(s_, t_, sv_, tv_, k_), 20)
+        ms = device_ms(lambda: nn.bucketed_candidates(s_, t_, sv_, tv_, k_), 20,
+                       ["stage1_kernel"])
+        plain = device_ms(lambda: nn.bucketed_candidates_plain(s_, t_, sv_, tv_, k_), 5)
+        b_ms, b_by = bound_ms(8.0 * n_src * n_tgt,
+                              s_.numel() * 4 + sv_.numel() + t_.numel() * 4 + tv_.numel()
+                              + s_.shape[0] * k_ * 16)
+        return dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+
+    table["B1"] = time_stage1(src, sv, tgt, tv, k)
+    table[f"B1 (geode k={gk})"] = time_stage1(gsrc, gsv, gtgt, gtv, gk)
 
     params, prep = main_path_moments_inputs(icp, src, sv, tgt, tv, dev)
     check_moments(f"main P={p} B={icp.source_capacity} K={k}", params, prep,
                   icp.max_dist, errs["B2"])
-    params_r, prep_r = tied_moments_inputs(10, 300, 12, dev, seed=12)
-    check_moments("ragged P=10 B=300 K=12 with ties", params_r, prep_r,
-                  icp.max_dist, errs["B2"], ties=True)
-    n_pts = int((prep.vmask > 0).sum())
+    params_r, prep_r = tied_moments_inputs(icp, 10, 300, 12, dev, seed=12)
+    check_moments(f"ragged P=10 B=300 K={prep_r.feat13.shape[1]} with ties",
+                  params_r, prep_r, icp.max_dist, errs["B2"], ties=True)
     call = cuda_time_ms(lambda: nn.plane_moments(params, prep, icp.max_dist), 50)
     ms = device_ms(lambda: nn.plane_moments(params, prep, icp.max_dist), 50,
                    ["plane_moments_kernel", "sum_tiles_kernel"])
     plain = device_ms(lambda: nn.plane_moments_plain(params, prep, icp.max_dist), 10)
-    nbytes = sum(x.numel() * 4 for x in prep) + params.numel() * 4 + p * 27 * 4
-    b_ms, b_by = bound_ms(p * n_pts * (26.0 * k + 130.0), nbytes)
+    # B2 reads a normal with each point and computes n.c once per slot
+    b_ms, b_by = moments_bound(params, prep, k, point_floats=6, slot_ops=10.0,
+                               point_ops=130.0)
     table["B2"] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+
+    # B4: the geode path's own operands, subt_mrs's shapes, ragged with ties
+    gparams, gprep = main_path_moments_inputs(gicp, gsrc, gsv, gtgt, gtv, dev)
+    check_moments(f"geode P={gicp.particle_count} B={gicp.source_capacity} "
+                  f"K={gprep.feat13.shape[1]}", gparams, gprep, gicp.max_dist,
+                  errs["B4"])
+    ssrc, ssv, stgt, stv = stage1_inputs(scfg, gscans, dev)
+    sparams, sprep = main_path_moments_inputs(scfg.icp, ssrc, ssv, stgt, stv, dev)
+    check_moments(f"subt_mrs P={scfg.icp.particle_count} B={scfg.icp.source_capacity} "
+                  f"K={sprep.feat13.shape[1]}", sparams, sprep, scfg.icp.max_dist,
+                  errs["B4"])
+    params_r, prep_r = tied_moments_inputs(gicp, 10, 300, 12, dev, seed=15)
+    check_moments(f"ragged P=10 B=300 K={prep_r.feat13.shape[1]} with ties",
+                  params_r, prep_r, gicp.max_dist, errs["B4"], ties=True)
+
+    def time_point_moments(params_, prep_, icp_):
+        md = icp_.max_dist
+        call = cuda_time_ms(lambda: nn.point_moments(params_, prep_, md), 50)
+        ms = device_ms(lambda: nn.point_moments(params_, prep_, md), 50,
+                       ["point_moments_kernel", "sum_tiles_kernel"])
+        plain = device_ms(lambda: nn.point_moments_plain(params_, prep_, md), 10)
+        b_ms, b_by = moments_bound(params_, prep_, icp_.knn_count, point_floats=3,
+                                   slot_ops=5.0, point_ops=150.0)
+        return dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+
+    table["B4"] = time_point_moments(gparams, gprep, gicp)
+    table[f"B4 (subt_mrs P={scfg.icp.particle_count} B={scfg.icp.source_capacity})"] = \
+        time_point_moments(sparams, sprep, scfg.icp)
+    del ssrc, ssv, stgt, stv, sparams, sprep
 
     hess, bb, r, t, prior = stein_inputs(p, dev, seed=13)
     check_stein(f"main P={p}", hess, bb, r, t, prior, errs["B3"])
@@ -504,60 +692,44 @@ def main() -> int:
               f"({row['bound_by']})  library_ms: none  [{smi}]")
 
     # ---- 4. main path
-    pipe = pl.LIOPipeline(cfg, device="cuda")
-    for fn in (nn.bucketed_candidates, nn.plane_moments, stein.stein_update):
-        fn.launches = 0
-    for i in range(WARMUP):
-        pipe.feed_scan(float(times[i]), scans[i])
-    pipe.flush()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(WARMUP, n_frames):
-        pipe.feed_scan(float(times[i]), scans[i])
-    pipe.flush()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    pipe.close()
-    launches = {"B1": nn.bucketed_candidates.launches,
-                "B2": nn.plane_moments.launches,
-                "B3": stein.stein_update.launches}
-    outs = pipe.outputs
-    iters = [o.icp_iterations for o in outs]
-    oks = [o.align_ok for o in outs]
-    traj = pipe.trajectory()
-    gt = np.tile(np.eye(4), (n_frames, 1, 1))
-    gt[:, :3, :3] = rots
-    gt[:, :3, 3] = trans
-    ate = metrics.ate_rmse(traj, gt)
-    print(f"main path: {TIMED / dt:.2f} frames/s over {TIMED} timed frames "
-          f"(configs/tpu_plane.yaml, 32,000-point scans) [{smi}]")
-    print(f"iterations per frame: {iters}")
-    print(f"align_ok per frame: {oks}")
-    print(f"ATE {ate:.4f} m over {n_frames} frames; launches {launches}; "
-          f"stage times {pipe.timer.report()}")
-    assert len(outs) == n_frames, len(outs)
-    assert launches["B1"] == n_frames - 1, launches
-    assert launches["B2"] == sum(iters) == launches["B3"], (launches, sum(iters))
-    assert all(oks), oks
-    assert np.isfinite(traj).all()
+    frames = [(times[i], scans[i], None) for i in range(n_frames)]
+    pipe, dt, launches = run_path(cfg, frames)
+    ate = report_path("main path (configs/tpu_plane.yaml)", pipe, dt, launches,
+                      rots, trans, smi)
+    iters = sum(o.icp_iterations for o in pipe.outputs)
+    assert launches["B2"] == iters == launches["B3"], (launches, iters)
+    assert launches["B4"] == 0, launches
     assert ate < 0.2, ate
     early_stop_cost(cfg, src, sv, tgt, tv, dev)
     if args.profile:
-        profile_frames(cfg, times, scans, WARMUP, 5)
+        profile_frames(cfg, frames, WARMUP, 5)
+    del src, sv, tgt, tv, params, prep
+
+    # ---- 5. GEODE-Alpha path
+    gframes = [(gtimes[i], gscans[i], gimu[i]) for i in range(n_frames)]
+    gpipe, gdt, glaunches = run_path(gcfg, gframes)
+    gate = report_path("geode path (configs/geode_alpha.yaml)", gpipe, gdt,
+                       glaunches, grots, gtrans, smi)
+    giters = sum(o.icp_iterations for o in gpipe.outputs)
+    gains = [float(o.kf_gain.abs().max()) for o in gpipe.outputs]
+    print(f"geode path: max |Kalman gain| per frame {[f'{x:.3g}' for x in gains]}; "
+          f"ATE limit {GEODE_ATE_LIMIT:.4f} m (the JAX package's float32 run: "
+          f"{GEODE_JAX_ATE:.4f} m)")
+    assert glaunches["B4"] == giters == glaunches["B3"], (glaunches, giters)
+    assert glaunches["B2"] == 0, glaunches
+    assert all(x > 0 for x in gains[1:]), gains
+    assert gate < GEODE_ATE_LIMIT, (gate, GEODE_ATE_LIMIT)
+    if args.profile:
+        profile_frames(gcfg, gframes, WARMUP, 5)
 
     rows = []
-    sources = {"B1": ("stage1_candidates", "svnicp_tpu_torch/csrc/stage1.cu",
-                      "svnicp_tpu/kernels/nn_pallas.py:563"),
-               "B2": ("plane_moments", "svnicp_tpu_torch/csrc/plane_moments.cu",
-                      "svnicp_tpu/kernels/nn_pallas.py:412"),
-               "B3": ("stein_update", "svnicp_tpu_torch/csrc/stein.cu",
-                      "svnicp_tpu/kernels/stein_pallas.py:227")}
-    for key, (name, source, replaces) in sources.items():
+    for key, (_, name, source, replaces) in KERNELS.items():
+        row = table[key]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=launches[key], max_abs_err=max(errs[key]),
-                         ms=table[key]["ms"], plain_ms=table[key]["plain_ms"],
-                         bound_ms=table[key]["bound_ms"],
-                         bound_by=table[key]["bound_by"], library_ms=None))
+                         launches=launches[key] + glaunches[key],
+                         max_abs_err=max(errs[key]), ms=row["ms"],
+                         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                         bound_by=row["bound_by"], library_ms=None))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

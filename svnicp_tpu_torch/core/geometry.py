@@ -92,6 +92,19 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     return torch.where(near_pi[..., None], torch.zeros_like(w), w)
 
 
+def euler_zyx_to_matrix(roll: torch.Tensor, pitch: torch.Tensor,
+                        yaw: torch.Tensor) -> torch.Tensor:
+    """R = Rz(yaw) Ry(pitch) Rx(roll); [...] angles -> [...,3,3]."""
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    return torch.stack([
+        torch.stack([cp * cy, sr * sp * cy - cr * sy, sr * sy + cr * sp * cy], dim=-1),
+        torch.stack([cp * sy, cr * cy + sr * sp * sy, cr * sp * sy - sr * cy], dim=-1),
+        torch.stack([-sp, sr * cp, cr * cp], dim=-1),
+    ], dim=-2)
+
+
 def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[...,6] = [rho, omega] -> (R [...,3,3], t = J_l(omega) rho)."""
     rho, omega = xi[..., :3], xi[..., 3:]

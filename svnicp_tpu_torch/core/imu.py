@@ -1,7 +1,13 @@
-"""Navigation-state container (port of `svnicp_tpu/core/imu.py`).
+"""IMU strapdown mechanization (port of `svnicp_tpu/core/imu.py`).
 
-Only the state the ICP estimator carries is ported so far; strapdown
-propagation arrives with the Kalman-filter estimator.
+Two reference behaviors that differ from textbook strapdown are kept, as
+the JAX package keeps them (ref: IMU.cpp:20-58):
+- the gravity increment of the velocity is rotated into the body-derived
+  frame (`R g dt`) while the one of the position is not;
+- the attitude increment composes as Euler RzRyRx of (gyro dt), not the
+  exponential map.
+The linear interpolation of a sample at the LiDAR stamp lives on the host,
+in `runtime/ingest.py`, as in the JAX package's LIOPipeline.
 """
 
 from __future__ import annotations
@@ -9,6 +15,19 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from svnicp_tpu_torch.core import geometry as geo
+
+# ref: svn-icp/include/sensor/IMU.h:24
+GRAVITY = 9.782940329221166
+
+
+class IMUSample(NamedTuple):
+    """One IMU measurement."""
+
+    dt: torch.Tensor     # [] seconds since the previous sample
+    acc: torch.Tensor    # [3] linear acceleration (body)
+    gyro: torch.Tensor   # [3] angular velocity (body)
 
 
 class NavState(NamedTuple):
@@ -23,3 +42,24 @@ class NavState(NamedTuple):
         return NavState(torch.eye(3, dtype=dtype, device=device),
                         torch.zeros(3, dtype=dtype, device=device),
                         torch.zeros(3, dtype=dtype, device=device))
+
+
+def compensate(sample: IMUSample, bias_acc: torch.Tensor,
+               bias_gyro: torch.Tensor) -> IMUSample:
+    """Subtract the estimated biases (ref: IMUCompensation, IMU.cpp:60-63)."""
+    return IMUSample(sample.dt, sample.acc - bias_acc, sample.gyro - bias_gyro)
+
+
+def propagate(state: NavState, imu_start: IMUSample,
+              imu_finish: IMUSample) -> NavState:
+    """One strapdown step (ref: IMUPropagation, IMU.cpp:20-58)."""
+    g = torch.tensor([0.0, 0.0, -GRAVITY], dtype=state.t.dtype,
+                     device=state.t.device)
+    d_vfn = state.r @ (imu_start.acc * imu_start.dt)
+    d_vgn = (state.r @ g) * imu_finish.dt          # reference quirk: rotated g
+    vel = state.v + d_vfn + d_vgn
+    dt = imu_finish.dt
+    t_new = state.t + state.v * dt + 0.5 * g * dt * dt + 0.5 * d_vfn * dt
+    rot_vec = imu_start.gyro * dt
+    d_r = geo.euler_zyx_to_matrix(rot_vec[0], rot_vec[1], rot_vec[2])
+    return NavState(state.r @ d_r, t_new, vel)

@@ -1,12 +1,15 @@
 """Stein Variational Newton ICP: the registration engine.
 
-Port of `svnicp_tpu/core/svn.py` for the point-to-plane residual and the
-Hessian-preconditioned coupling (svn_full_grad off), the configuration of
-`configs/tpu_plane.yaml`. One iteration is two calls: the plane-moments
-wrapper (kernel B2 on the card) for every particle's Gauss-Newton system,
-then the ensemble-update wrapper (kernel B3) for the Newton solve, Stein
-coupling and pose update. For CPU tensors both wrappers run their plain
-versions, in float32 or float64.
+Port of `svnicp_tpu/core/svn.py` for both residuals and the
+Hessian-preconditioned coupling (svn_full_grad off): point-to-plane as in
+`configs/tpu_plane.yaml`, point-to-point as in `configs/geode_alpha.yaml`
+and `configs/subt_mrs.yaml`. One iteration is two calls: the moments
+wrapper of the residual (kernel B2 plane, B4 point, on the card) for every
+particle's Gauss-Newton system, then the ensemble-update wrapper (kernel
+B3) for the Newton solve, Stein coupling and pose update. For CPU tensors
+the wrappers run their plain versions, in float32 or float64. Both
+residuals take the candidate sets padded to a multiple of 8 slots, as the
+JAX package's kernel path does.
 
 Early stop: JAX stops inside a device `while_loop`. Here the host reads the
 stop statistic after every iteration (one device sync per iteration) and
@@ -17,8 +20,9 @@ fewer than `cfg.iterations` have run, and a degenerate correspondence set
 grad_norm = +inf, which the pipeline reads as a failed alignment.
 
 Reference quirks kept (see the JAX module): the correspondence gate compares
-the SQUARED distance against the unsquared max_dist, and particle weights
-stay uniform.
+the SQUARED distance against the unsquared max_dist, point-to-point pairs
+outside the gate add the identity damping of weight 1 to H, and particle
+weights stay uniform.
 """
 
 from __future__ import annotations
@@ -51,7 +55,6 @@ def check_supported(cfg: SteinICPConfig) -> None:
     """The options this port implements so far; others raise."""
     unsupported = {
         "method": cfg.method != "svn",
-        "residual": cfg.residual != "point_to_plane",
         "candidate_method": cfg.candidate_method != "bucketed",
         "match_count": cfg.match_count != 0,
         "svn_full_grad": cfg.svn_full_grad,
@@ -65,8 +68,7 @@ def check_supported(cfg: SteinICPConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"svnicp_tpu_torch does not port {bad} yet (this slice runs "
-            "method=svn, residual=point_to_plane, candidate_method=bucketed, "
-            "use_pallas=true)")
+            "method=svn, candidate_method=bucketed, use_pallas=true)")
 
 
 def prior_inverse_variance(cfg: SteinICPConfig, dtype, device) -> torch.Tensor:
@@ -112,13 +114,20 @@ def valid_pair_count(src_valid, cand_valid) -> torch.Tensor:
     return (cand_valid.any(1) & src_valid).sum()
 
 
-def _prepare_align(source, src_valid, cand_pts, cand_valid) -> nn.MomentsPrep:
+def _prepare_align(cfg: SteinICPConfig, source, src_valid, cand_pts,
+                   cand_valid) -> nn.PlanePrep | nn.PointPrep:
     """Per-frame, loop-invariant setup: plane normals from the full
-    candidate sets, correspondence features, the kernel's operand layout."""
-    n_vec, n_valid = residuals.plane_normals(cand_pts, cand_valid)
+    candidate sets (point-to-plane), K padded to a multiple of 8 with
+    invalid slots, correspondence features, the kernel's operand layout."""
+    plane = cfg.residual == "point_to_plane"
+    if plane:
+        n_vec, n_valid = residuals.plane_normals(cand_pts, cand_valid)
+    cand_pts, cand_valid = nn.pad_candidates(cand_pts, cand_valid, multiple=8)
     feat, bias = correspondence_features(source, cand_pts, cand_valid)
-    return nn.prepare_moments_plane(feat, bias, cand_pts, source, n_vec,
-                                    n_valid & src_valid)
+    if plane:
+        return nn.prepare_moments_plane(feat, bias, cand_pts, source, n_vec,
+                                        n_valid & src_valid)
+    return nn.prepare_moments_point(feat, bias, cand_pts, source, src_valid)
 
 
 def _svn_iteration(cfg: SteinICPConfig, prep, prior, r0, t0, r, t):
@@ -127,7 +136,7 @@ def _svn_iteration(cfg: SteinICPConfig, prep, prior, r0, t0, r, t):
     r_total = r0[None] @ r
     t_total = t0[None] + t @ r0.T
     params = torch.cat([r_total.reshape(p, 9), t_total], dim=-1).contiguous()
-    hess, b = nn.plane_moments(params, prep, cfg.max_dist)
+    hess, b = nn.moments(params, prep, cfg.max_dist)
     if p > 1:
         r_new, t_new, grad_norm, mean_delta = stein.stein_update(
             hess, b, r, t, prior, max_dist=cfg.max_dist)
@@ -153,7 +162,7 @@ def align(cfg: SteinICPConfig, source, src_valid, cand_pts, cand_valid, r0, t0,
     t = init_particles[:, :3].contiguous()
     if int(valid_pair_count(src_valid, cand_valid)) < MIN_CONSTRAINT_POINTS:
         return ensemble_result(r, t, 0, float("inf"))
-    prep = _prepare_align(source, src_valid, cand_pts, cand_valid)
+    prep = _prepare_align(cfg, source, src_valid, cand_pts, cand_valid)
     prior = None
     if cfg.prior_information:
         inv = prior_inverse_variance(cfg, source.dtype, source.device)

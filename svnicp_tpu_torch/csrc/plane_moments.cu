@@ -13,15 +13,17 @@
 // fixed order (no atomics), so repeated runs give bit-identical moments.
 //
 // What bounds it: arithmetic. At the main path's shapes (P=64, K=32, B=4096)
-// the scan is 8.4e6 (p,b,k) triples of 13 FMAs plus ~60 flops per (p,b),
-// about 0.25 GFLOP, against 7.3 MB of input. The design reads each point's
+// the function needs ~8 flops per (p,b,k) triple in the form
+// |c|^2 - 2 c.(T s) plus ~145 per (p,b), about 0.1 GFLOP, against ~1.8 MB of
+// candidates, normals and source; this kernel does 13 FMAs per triple
+// (0.25 GFLOP) on 7.3 MB of prepared features. The design reads each point's
 // 13x32 features once per group of 8 particles (particles sit in shared
 // memory, points on threads, so the feature loads are coalesced along B),
 // keeps the running min / tie count / n.q sum of its 8 particles in
 // registers, and reduces the 27 moments with warp shuffles and then across
 // the block's 4 warps in shared memory.
 
-#include "common.cuh"
+#include "tiles.cuh"
 
 namespace {
 
@@ -144,16 +146,6 @@ plane_moments_kernel(const float* __restrict__ params,   // [P,12]
       partial[(static_cast<long long>(tile) * kMom + v) * P + p] = s;
     }
   }
-}
-
-// out[i] = sum over tiles t in order of partial[t, i], i < n = 27*P.
-__global__ void sum_tiles_kernel(const float* __restrict__ partial, int n_tiles, int n,
-                                 float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int t = 0; t < n_tiles; ++t) s += partial[static_cast<long long>(t) * n + i];
-  out[i] = s;
 }
 
 }  // namespace

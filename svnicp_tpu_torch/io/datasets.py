@@ -1,7 +1,8 @@
 """Synthetic ground-truthed LiDAR sequences (port of
-`svnicp_tpu/io/datasets.py`: `SyntheticWorld.scan_at` and
-`synthetic_trajectory`). The same numpy draws in the same order, so a scan
-made here from a seed is byte-equal to the JAX package's."""
+`svnicp_tpu/io/datasets.py`: `SyntheticWorld.scan_at`,
+`synthetic_trajectory` and `synthetic_imu`). The same numpy draws in the
+same order, so a scan made here from a seed is byte-equal to the JAX
+package's."""
 
 from __future__ import annotations
 
@@ -68,17 +69,45 @@ class SyntheticWorld:
 
 
 def synthetic_trajectory(n_frames: int, dt: float = 0.1, speed: float = 1.5,
-                         turn_rate: float = 0.08, seed: int = 0):
-    """Smooth planar trajectory at constant speed with yaw following heading
-    -> (times [N], rotations [N,3,3], translations [N,3])."""
+                         turn_rate: float = 0.08, seed: int = 0,
+                         ramp_seconds: float = 0.0):
+    """Smooth planar trajectory with yaw following heading; `ramp_seconds` > 0
+    accelerates from rest (a filter's cold start at v=0 then sees no
+    synthetic transient) -> (times [N], rotations [N,3,3], translations [N,3])."""
     rng = np.random.default_rng(seed)
     times = np.arange(n_frames) * dt
     yaw = np.cumsum(rng.normal(loc=turn_rate, scale=0.02, size=n_frames) * dt)
     heading = np.stack([np.cos(yaw), np.sin(yaw), np.zeros(n_frames)], axis=1)
-    pos = np.cumsum(heading * speed * dt, axis=0)
+    if ramp_seconds > 0:
+        v = speed * np.clip(times / ramp_seconds, 0.0, 1.0)
+    else:
+        v = np.full(n_frames, speed)
+    pos = np.cumsum(heading * v[:, None] * dt, axis=0)
     pos[:, 2] = 0.8 + 0.05 * np.sin(times)
     rots = np.zeros((n_frames, 3, 3))
     for i in range(n_frames):
         c, s = np.cos(yaw[i]), np.sin(yaw[i])
         rots[i] = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
     return times, rots, pos
+
+
+def synthetic_imu(times, rots, trans, gravity: float):
+    """IMU samples consistent with a discrete trajectory (midpoint rates)
+    -> list of (t, acc [3], gyro [3]) at the trajectory stamps; acc is the
+    specific force in the body frame, R^T (a_nav + g_up)."""
+    from scipy.spatial.transform import Rotation
+
+    n = len(times)
+    vel = np.gradient(trans, times, axis=0)
+    acc_nav = np.gradient(vel, times, axis=0)
+    g_up = np.array([0.0, 0.0, gravity])
+    imu = []
+    for i in range(n):
+        r = rots[i]
+        if i + 1 < n:
+            w = (Rotation.from_matrix(r.T @ rots[i + 1]).as_rotvec()
+                 / (times[i + 1] - times[i]))
+        else:
+            w = np.zeros(3)
+        imu.append((float(times[i]), r.T @ (acc_nav[i] + g_up), w))
+    return imu

@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "svnicp_tpu_torch"
-CUDA_SOURCES = ("stage1.cu", "plane_moments.cu", "stein.cu")
+CUDA_SOURCES = ("stage1.cu", "plane_moments.cu", "point_moments.cu", "stein.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +36,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "stage1.cu": {"svn_stage1_candidates": [_P] * 4 + [_I] * 5 + [_P] * 3},
     "plane_moments.cu": {"svn_plane_moments": [_P] * 6 + [_I] * 3 + [_F] + [_P] * 3},
+    "point_moments.cu": {"svn_point_moments": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 3},
     "stein.cu": {"svn_stein_update": [_P] * 5 + [_I, _F] + [_P] * 4},
 }
 
@@ -61,7 +62,7 @@ def _digest(paths, flags) -> str:
 
 
 def _out_path(src: str) -> Path:
-    deps = [CSRC / src, CSRC / "common.cuh"]
+    deps = [CSRC / src, *sorted(CSRC.glob("*.cuh"))]
     return BUILD_DIR / f"{Path(src).stem}-{_digest(deps, NVCC_FLAGS)}.so"
 
 

@@ -1,15 +1,17 @@
-"""The stage-1 candidate kernel (B1) and the plane-moments kernel (B2).
+"""The stage-1 candidate kernel (B1), the plane-moments kernel (B2) and the
+point-moments kernel (B4).
 
-Each function has a CUDA kernel (`csrc/stage1.cu`, `csrc/plane_moments.cu`)
-and a plain PyTorch version of the same math beside it. The wrapper runs
-the plain version only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises (float32, contiguous, one device), and counts its
-launches in `<wrapper>.launches`.
+Each function has a CUDA kernel (`csrc/stage1.cu`, `csrc/plane_moments.cu`,
+`csrc/point_moments.cu`) and a plain PyTorch version of the same math
+beside it. The wrapper runs the plain version only for tensors on the CPU;
+for CUDA tensors it launches the kernel or raises (float32, contiguous, one
+device), and counts its launches in `<wrapper>.launches`. `moments` picks
+B2 or B4 from the type of the prep it is given.
 
-Both kernels average the coordinates (B1) or n.q values (B2) of tied
+The kernels average the coordinates (B1, B4) or n.q values (B2) of tied
 minima, as the Pallas kernels they replace do
 (`svnicp_tpu/kernels/nn_pallas.py`: `bucketed_candidates`,
-`fused_moments_plane_kb`).
+`fused_moments_plane_kb`, `fused_moments_kb`).
 """
 
 from __future__ import annotations
@@ -18,11 +20,13 @@ from typing import NamedTuple
 
 import torch
 
+from svnicp_tpu_torch.core import geometry as geo
 from svnicp_tpu_torch.kernels import _build
 from svnicp_tpu_torch.kernels.knn import bucket_block_size, group_scores
 
 _JITTER = 1e-6
 _N_MOMENTS = 27
+_N_POINT_MOMENTS = 19
 
 
 # --------------------------------------------------------------- B1 stage-1
@@ -78,7 +82,7 @@ bucketed_candidates.launches = 0
 
 # ----------------------------------------------------- B2 plane moments
 
-class MomentsPrep(NamedTuple):
+class PlanePrep(NamedTuple):
     """Loop-invariant operands of the plane-moments kernel, B innermost so
     neighbouring threads read neighbouring addresses."""
 
@@ -88,14 +92,19 @@ class MomentsPrep(NamedTuple):
     nrm_t: torch.Tensor    # [3,B]
     vmask: torch.Tensor    # [B] 1.0 where the point and its plane fit count
 
+    @property
+    def averaged(self) -> torch.Tensor:
+        """The operand whose values the tied minima average (K on axis -2)."""
+        return self.ndotc
+
 
 def prepare_moments_plane(feat, bias, cand_pts, source, normals, valid
-                          ) -> MomentsPrep:
+                          ) -> PlanePrep:
     """Per-frame layout for `plane_moments` (the JAX package's
     `prepare_moments_plane_kb`)."""
     b, k = bias.shape
     feat13 = torch.cat([-2.0 * feat.reshape(b, k, 12), bias[..., None]], dim=-1)
-    return MomentsPrep(
+    return PlanePrep(
         feat13=feat13.permute(2, 1, 0).contiguous(),
         ndotc=torch.einsum("bkd,bd->kb", cand_pts, normals).contiguous(),
         src_t=source.T.contiguous(),
@@ -116,7 +125,7 @@ def assemble_plane_system(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return h, m[:, 21:27].contiguous()
 
 
-def plane_moments_plain(params: torch.Tensor, prep: MomentsPrep,
+def plane_moments_plain(params: torch.Tensor, prep: PlanePrep,
                         max_dist: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-particle point-to-plane Gauss-Newton system from the candidate
     sets: params [P,12] = [vec(R_total), t_total] -> (H [P,6,6], b [P,6])."""
@@ -150,7 +159,7 @@ def plane_moments_plain(params: torch.Tensor, prep: MomentsPrep,
     return assemble_plane_system(torch.stack(comps, dim=1))
 
 
-def plane_moments(params: torch.Tensor, prep: MomentsPrep, max_dist: float
+def plane_moments(params: torch.Tensor, prep: PlanePrep, max_dist: float
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """H [P,6,6], b [P,6] of the point-to-plane residual (kernel B2 on the
     card, the plain version on the CPU)."""
@@ -164,16 +173,155 @@ def plane_moments(params: torch.Tensor, prep: MomentsPrep, max_dist: float
             or prep.nrm_t.shape != (3, b) or prep.vmask.shape != (b,)):
         raise ValueError("plane_moments: shapes do not match [P,12], [13,K,B], "
                          "[K,B], [3,B], [3,B], [B]")
-    n_tiles = -(-b // 128)
-    partial = torch.empty((n_tiles, _N_MOMENTS, p), dtype=torch.float32,
-                          device=params.device)
-    m = torch.empty((_N_MOMENTS, p), dtype=torch.float32, device=params.device)
-    err = _build.library("plane_moments.cu").svn_plane_moments(
-        *(_build.ptr(t) for t in (params, *prep)), p, k, b, float(max_dist),
-        _build.ptr(partial), _build.ptr(m), _build.stream_of(params))
-    _build.check(err, "plane-moments kernel")
+    m = _run_moments("plane_moments.cu", "svn_plane_moments", _N_MOMENTS,
+                     params, prep, k, b, max_dist)
     plane_moments.launches += 1
     return assemble_plane_system(m.T)
 
 
 plane_moments.launches = 0
+
+
+def _run_moments(src, entry, n_mom, params, prep, k, b, max_dist):
+    """Launch a moments kernel on `params`' stream -> moments [n_mom, P]."""
+    p = params.shape[0]
+    partial = torch.empty((-(-b // 128), n_mom, p), dtype=torch.float32,
+                          device=params.device)
+    m = torch.empty((n_mom, p), dtype=torch.float32, device=params.device)
+    err = getattr(_build.library(src), entry)(
+        *(_build.ptr(t) for t in (params, *prep)), p, k, b, float(max_dist),
+        _build.ptr(partial), _build.ptr(m), _build.stream_of(params))
+    _build.check(err, f"{entry} kernel")
+    return m
+
+
+# ----------------------------------------------------- B4 point moments
+
+def pad_candidates(cand_pts, cand_valid, multiple: int = 8):
+    """Pad the K axis to a multiple of `multiple` with invalid slots (zero
+    points): the JAX package runs its K-on-sublane moments kernels at K
+    rounded up to 8, so K=100 becomes 104."""
+    b, k = cand_valid.shape
+    pad = (-k) % multiple
+    if pad == 0:
+        return cand_pts, cand_valid
+    return (torch.cat([cand_pts, cand_pts.new_zeros((b, pad, 3))], dim=1),
+            torch.cat([cand_valid, cand_valid.new_zeros((b, pad))], dim=1))
+
+
+class PointPrep(NamedTuple):
+    """Loop-invariant operands of the point-moments kernel, B innermost."""
+
+    feat13: torch.Tensor   # [13,K,B]: -2 [vec(c s^T), c] and |c|^2 (+inf invalid)
+    cand_t: torch.Tensor   # [3,K,B] candidate coordinates
+    src_t: torch.Tensor    # [3,B]
+    vmask: torch.Tensor    # [B] 1.0 where the source point is real
+
+    @property
+    def averaged(self) -> torch.Tensor:
+        """The operand whose values the tied minima average (K on axis -2)."""
+        return self.cand_t
+
+
+def prepare_moments_point(feat, bias, cand_pts, source, src_valid) -> PointPrep:
+    """Per-frame layout for `point_moments` (the JAX package's
+    `prepare_moments_kb`)."""
+    b, k = bias.shape
+    feat13 = torch.cat([-2.0 * feat.reshape(b, k, 12), bias[..., None]], dim=-1)
+    return PointPrep(
+        feat13=feat13.permute(2, 1, 0).contiguous(),
+        cand_t=cand_pts.permute(2, 1, 0).contiguous(),
+        src_t=source.T.contiguous(),
+        vmask=src_valid.to(source.dtype).contiguous(),
+    )
+
+
+def assemble_point_system(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[P,19] moments (sw, m1 [3], m2 [3x3 row-major], b_t [3], b_r [3]) ->
+    (H [P,6,6], b [P,6]) by the block-moment identity of the JAX package's
+    core/residuals.py: H = [[sw I, -[m1]x], [[m1]x, tr(m2) I - m2]] + 1e-6 I."""
+    p = m.shape[0]
+    eye3 = torch.eye(3, dtype=m.dtype, device=m.device)
+    m2 = m[:, 4:13].reshape(p, 3, 3)
+    sk = geo.skew(m[:, 1:4])
+    h_tt = m[:, 0, None, None] * eye3
+    h_rr = torch.diagonal(m2, dim1=1, dim2=2).sum(-1)[:, None, None] * eye3 - m2
+    h = torch.cat([torch.cat([h_tt, -sk], dim=2), torch.cat([sk, h_rr], dim=2)],
+                  dim=1)
+    h = h + _JITTER * torch.eye(6, dtype=m.dtype, device=m.device)
+    return h, m[:, 13:19].contiguous()
+
+
+def point_moments_plain(params: torch.Tensor, prep: PointPrep,
+                        max_dist: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-particle point-to-point Gauss-Newton system from the candidate
+    sets: params [P,12] = [vec(R_total), t_total] -> (H [P,6,6], b [P,6]).
+    The matched point is the mean of the tied minima; a pair outside the
+    gate (squared distance against the unsquared max_dist, or no valid
+    candidate) keeps weight 1 with a zero residual and a zero source point,
+    so it adds only to H's sw I block; padded points add nothing."""
+    p = params.shape[0]
+    params13 = torch.cat([params, params.new_ones((p, 1))], dim=-1)
+    score = torch.einsum("pc,ckb->pkb", params13, prep.feat13)
+    best = score.amin(1)
+    hit = (score == best[:, None, :]).to(params.dtype)
+    inv = 1.0 / hit.sum(1).clamp_min(1.0)
+    matched = [(hit * prep.cand_t[c][None]).sum(1) * inv for c in range(3)]
+
+    s = [prep.src_t[i][None, :] for i in range(3)]
+    pc = [params[:, i][:, None] for i in range(12)]
+    tr = [pc[3 * i] * s[0] + pc[3 * i + 1] * s[1] + pc[3 * i + 2] * s[2] + pc[9 + i]
+          for i in range(3)]
+    d2 = (best + tr[0] * tr[0] + tr[1] * tr[1] + tr[2] * tr[2]).clamp_min(0.0)
+    gate = ((d2 < max_dist) & (best < 1e30)).to(params.dtype)
+    e = [(tr[i] - matched[i]) * gate for i in range(3)]
+    en = torch.sqrt(e[0] * e[0] + e[1] * e[1] + e[2] * e[2])
+    w = torch.square(max_dist / (max_dist + 3.0 * en)) * prep.vmask[None, :]
+    we = [w * e[i] for i in range(3)]
+    sg = [s[i] * gate for i in range(3)]
+    rte = [pc[j] * we[0] + pc[3 + j] * we[1] + pc[6 + j] * we[2] for j in range(3)]
+    comps = [w.sum(1)]
+    comps += [(w * sg[i]).sum(1) for i in range(3)]
+    comps += [(w * sg[i] * sg[j]).sum(1) for i in range(3) for j in range(3)]
+    comps += [rte[j].sum(1) for j in range(3)]
+    comps += [(sg[1] * rte[2] - sg[2] * rte[1]).sum(1),
+              (sg[2] * rte[0] - sg[0] * rte[2]).sum(1),
+              (sg[0] * rte[1] - sg[1] * rte[0]).sum(1)]
+    return assemble_point_system(torch.stack(comps, dim=1))
+
+
+def point_moments(params: torch.Tensor, prep: PointPrep, max_dist: float
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """H [P,6,6], b [P,6] of the point-to-point residual (kernel B4 on the
+    card, the plain version on the CPU)."""
+    if params.device.type == "cpu":
+        return point_moments_plain(params, prep, max_dist)
+    _build.require_cuda_f32("point_moments", params, *prep)
+    p = params.shape[0]
+    _, k, b = prep.feat13.shape
+    if (params.shape != (p, 12) or prep.feat13.shape[0] != 13
+            or prep.cand_t.shape != (3, k, b) or prep.src_t.shape != (3, b)
+            or prep.vmask.shape != (b,)):
+        raise ValueError("point_moments: shapes do not match [P,12], [13,K,B], "
+                         "[3,K,B], [3,B], [B]")
+    m = _run_moments("point_moments.cu", "svn_point_moments", _N_POINT_MOMENTS,
+                     params, prep, k, b, max_dist)
+    point_moments.launches += 1
+    return assemble_point_system(m.T)
+
+
+point_moments.launches = 0
+
+
+# ------------------------------------------------------------ either residual
+
+# prep type -> (wrapper, plain version) of its moments function
+MOMENTS = {PlanePrep: (plane_moments, plane_moments_plain),
+           PointPrep: (point_moments, point_moments_plain)}
+
+
+def moments(params: torch.Tensor, prep: PlanePrep | PointPrep, max_dist: float
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """H [P,6,6], b [P,6] of the residual `prep` was built for: B2 for a
+    PlanePrep, B4 for a PointPrep."""
+    return MOMENTS[type(prep)][0](params, prep, max_dist)

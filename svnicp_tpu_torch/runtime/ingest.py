@@ -1,12 +1,13 @@
 """Host-side ingest and staging for LIOPipeline.
 
-Port of `svnicp_tpu/runtime/ingest.py` (the parts the ICP estimator uses):
-the IMU window bookkeeping, the raw-scan staging of the bootstrap frame
-(`_pack_frame`), the host-preprocessed staging (crop + stage-A downsample
-in native code, `_stage_scan_pre_untimed`), and the stage-ahead pair that
-runs frame k's staging on one worker thread while frame k-1 is dispatched
-(the native calls release the GIL). The dispatch half stays in
-`runtime/pipeline.py`.
+Port of `svnicp_tpu/runtime/ingest.py`: the IMU window bookkeeping, the
+raw-scan staging (`_pack_frame`), the host-preprocessed staging (crop +
+stage-A downsample in native code, `_stage_scan_pre_untimed`), and the
+stage-ahead pair that runs frame k's staging on one worker thread while
+frame k-1 is dispatched (the native calls release the GIL). Every staging
+route packs the frame's IMU window on the calling thread when the frame is
+staged, as the JAX package does, and hands it to the step with the scan.
+The dispatch half stays in `runtime/pipeline.py`.
 """
 
 from __future__ import annotations
@@ -14,10 +15,19 @@ from __future__ import annotations
 import concurrent.futures
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
 from svnicp_tpu_torch.io import native
+
+
+class ImuWindow(NamedTuple):
+    """One frame's IMU samples, packed as the JAX package packs them."""
+
+    buf: np.ndarray   # [W,7] dt + acc + gyro, the first `count` rows valid
+    count: int
+    dropped: int      # oldest samples the window could not hold
 
 
 class IngestDriver:
@@ -55,9 +65,9 @@ class IngestDriver:
         del samples[:n_used]
         return out
 
-    def _pack_imu(self, t: float) -> tuple[np.ndarray, int, int]:
-        """(imu_buf [W,7] = dt + acc + gyro, n_samples, n_dropped): a window
-        longer than `imu_window` drops (and counts) its oldest samples."""
+    def _pack_imu(self, t: float) -> ImuWindow:
+        """The samples up to `t` as an ImuWindow: a window longer than
+        `imu_window` drops (and counts) its oldest samples."""
         w = self.imu_window
         window = self._take_imu_window(t)
         n_drop = max(len(window) - w, 0)
@@ -72,7 +82,7 @@ class IngestDriver:
             imu_buf[i, 0] = dt
             imu_buf[i, 1:4] = a
             imu_buf[i, 4:7] = g
-        return imu_buf, len(triples), n_drop
+        return ImuWindow(imu_buf, len(triples), n_drop)
 
     def _apply_extrinsic(self, points: np.ndarray) -> np.ndarray:
         """lidar -> IMU extrinsic at ingest (ref: OdometryPipeline.cpp:349)."""
@@ -85,14 +95,14 @@ class IngestDriver:
     def _pack_frame(self, t: float, points: np.ndarray):
         """Raw staging (bootstrap frame, and every frame without
         host_downsample): native crop + pad into raw_capacity rows ->
-        (scan [cap,3], n_points, n_imu_dropped)."""
+        (scan [cap,3], n_points, ImuWindow)."""
         cap = self.cfg.preprocess.raw_capacity
         pp = self.cfg.preprocess
         with self.timer.span("preprocess"):
             pts, _, n = native.stage_scan(self._apply_extrinsic(points),
                                           pp.min_range, pp.max_range, cap)
-        _, _, n_drop = self._pack_imu(t)
-        return pts.astype(self.cfg.np_dtype, copy=False), min(int(n), cap), n_drop
+        return (pts.astype(self.cfg.np_dtype, copy=False), min(int(n), cap),
+                self._pack_imu(t))
 
     def _stage_scan_pre_untimed(self, points: np.ndarray):
         """Native crop + the stage-A (0.5 voxel) downsample -> (to_map rows
@@ -107,8 +117,7 @@ class IngestDriver:
     def _pack_frame_pre(self, t: float, points: np.ndarray):
         with self.timer.span("preprocess"):
             ds_buf, n_map = self._stage_scan_pre_untimed(points)
-        _, _, n_drop = self._pack_imu(t)
-        return ds_buf, n_map, n_drop
+        return ds_buf, n_map, self._pack_imu(t)
 
     def _timed_stage_pre(self, points):
         """Worker-thread staging with its own clock, so preprocessing time
@@ -123,20 +132,20 @@ class IngestDriver:
         if self._stage_pool is None:
             self._stage_pool = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="svnicp-stage")
-        _, _, n_drop = self._pack_imu(t)
+        imu = self._pack_imu(t)
         fut = self._stage_pool.submit(self._timed_stage_pre, points)
         idx = self._frames
         self._frames += 1
         self._last_frame_time = t
-        self._pending.append((t, n_drop, fut, idx, init_particles))
+        self._pending.append((t, imu, fut, idx, init_particles))
         if len(self._pending) > 1:
             return self._dispatch_pending()
         return None
 
     def _dispatch_pending(self):
-        t, n_drop, fut, idx, init_particles = self._pending.pop(0)
+        t, imu, fut, idx, init_particles = self._pending.pop(0)
         (ds_buf, n_map), pre_dt = fut.result()
-        out = self._dispatch_pre(t, ds_buf, n_map, n_drop, idx, init_particles)
+        out = self._dispatch_pre(t, ds_buf, n_map, imu, idx, init_particles)
         self.outputs.append(out)
         self.times.append(t)
         self.frame_timings.append({

@@ -1,12 +1,16 @@
 """The odometry pipeline: one step per LiDAR frame and a host driver.
 
-Port of `svnicp_tpu/runtime/pipeline.py` for the constant-velocity ICP
-estimator. A frame: derive the stage-B source cloud on the device
-(`pointcloud.downsample_uniform` of the host's stage-A cloud), predict the
-pose, draw a fresh particle prior, cut the local map (`voxmap.query_radius`),
-register (`svn.register`: stage-1 kernel, plane fits, the align loop of
-plane-moments and Stein-update kernels), contain failures, push the
-variance rings, compose the pose and insert the scan into the map.
+Port of `svnicp_tpu/runtime/pipeline.py` for both estimators: the
+constant-velocity ICP estimator and the error-state Kalman filter. A frame:
+in KF mode propagate the ESKF over the frame's IMU window; derive the
+stage-B source cloud on the device (`pointcloud.downsample_uniform` of the
+host's stage-A cloud, or both stages from the raw scan); predict the pose
+(constant velocity, or the ESKF's nav pose); draw a fresh particle prior;
+cut the local map (`voxmap.query_radius`); register (`svn.register`:
+stage-1 kernel, the align loop of moments and Stein-update kernels);
+contain failures; push the variance rings; compose the pose (ICP) or fuse
+the ensemble mean and covariance into the ESKF (KF); insert the scan into
+the map.
 
 The state is a NamedTuple of tensors plus a few host values (frame index,
 ring fill count, the particle generator); steps return a new state and
@@ -27,10 +31,11 @@ import torch
 from svnicp_tpu_torch.config import PipelineConfig
 from svnicp_tpu_torch.core import eskf as eskf_mod
 from svnicp_tpu_torch.core import geometry as geo
+from svnicp_tpu_torch.core import imu as imu_mod
 from svnicp_tpu_torch.core import pointcloud as pc
 from svnicp_tpu_torch.core import smoother, svn, voxmap
 from svnicp_tpu_torch.device import resolve_device
-from svnicp_tpu_torch.runtime.ingest import IngestDriver
+from svnicp_tpu_torch.runtime.ingest import ImuWindow, IngestDriver
 from svnicp_tpu_torch.runtime.profiling import StageTimer
 
 
@@ -73,7 +78,7 @@ class FrameOutput(NamedTuple):
     map_dropped: torch.Tensor
     target_overflow: torch.Tensor
     imu_dropped: int
-    kf_gain: torch.Tensor      # [15,6] (zeros in ICP mode)
+    kf_gain: torch.Tensor      # [15,6] last Kalman gain (zeros in ICP mode)
     kf_cov_diag: torch.Tensor  # [15]
     history: torch.Tensor      # [0,P,6]: save_particles is not ported
 
@@ -82,7 +87,6 @@ def check_supported(cfg: PipelineConfig) -> None:
     """The pipeline options this port implements so far; others raise."""
     pp = cfg.preprocess
     unsupported = {
-        "lio.estimator=kf": cfg.lio.estimator != "icp",
         "preprocess.deskew": pp.deskew,
         "preprocess.use_segmentation": pp.use_segmentation,
         "preprocess.feature_select": pp.feature_select,
@@ -119,9 +123,30 @@ def init_state(cfg: PipelineConfig, device) -> OdometryState:
         rng=rng, frame_idx=0)
 
 
-def _predict_pose(state: OdometryState, time: torch.Tensor):
-    """Constant-velocity extrapolation of the last two poses
+def _imu_scan_predict(ekf: eskf_mod.ESKFState, imu: ImuWindow | None, noise,
+                     textbook_phi: bool = False) -> eskf_mod.ESKFState:
+    """ESKF predict over the window's valid samples, each the finish sample
+    of one interval; the previous sample starts as the window's first
+    sample itself (the JAX package's `_imu_scan_predict`, whose scan over
+    all padded slots leaves the state unchanged at invalid ones)."""
+    if imu is None or imu.count == 0:
+        return ekf
+    rows = torch.as_tensor(imu.buf[:imu.count]).to(device=ekf.cov.device,
+                                                   dtype=ekf.cov.dtype)
+    samples = [imu_mod.IMUSample(r[0], r[1:4], r[4:7]) for r in rows]
+    prev = samples[0]
+    for cur in samples:
+        ekf = eskf_mod.predict(ekf, prev, cur, noise, textbook_phi=textbook_phi)
+        prev = cur
+    return ekf
+
+
+def _predict_pose(cfg: PipelineConfig, state: OdometryState, time: torch.Tensor):
+    """Initial guess: the ESKF's nav pose in KF mode (ref: ESEKF.cpp:68),
+    else constant-velocity extrapolation of the last two poses
     (ref: OdometryPipeline.cpp:706-737)."""
+    if cfg.lio.estimator == "kf":
+        return state.eskf.nav.r, state.eskf.nav.t
     rd, td = geo.transform_compose(
         *geo.transform_inverse(state.prev_r, state.prev_t),
         state.pose_r, state.pose_t)
@@ -148,7 +173,7 @@ def _preprocess(cfg: PipelineConfig, points, valid):
 
 
 def _zeros_output(cfg, state, guess_r, guess_t, map_points, map_dropped,
-                  imu_dropped) -> FrameOutput:
+                  imu_dropped: int) -> FrameOutput:
     p = cfg.icp.particle_count
     kw = dict(dtype=guess_t.dtype, device=guess_t.device)
     zero6 = torch.zeros(6, **kw)
@@ -173,19 +198,67 @@ def _insert(cfg: PipelineConfig, vmap, cloud, pose_r, pose_t):
 
 
 def bootstrap(cfg: PipelineConfig, state: OdometryState, points, valid,
-              time: torch.Tensor, imu_dropped: int = 0):
+              time: torch.Tensor, imu: ImuWindow | None = None):
     """First frame: crop the raw scan and seed the map at the predicted
-    pose, no alignment (ref: OdometryPipeline.cpp:583-591)."""
+    pose, no alignment and no IMU predict: the frame's window is consumed
+    unused (ref: OdometryPipeline.cpp:583-591)."""
     pp = cfg.preprocess
     cropped = pc.crop(pc.PaddedCloud(points, valid), pp.min_range, pp.max_range)
-    guess_r, guess_t = _predict_pose(state, time)
+    guess_r, guess_t = _predict_pose(cfg, state, time)
     new_map, dropped = _insert(cfg, state.vmap, cropped, guess_r, guess_t)
     state = state._replace(
         vmap=new_map, prev_r=state.pose_r, prev_t=state.pose_t,
         prev_time=state.pose_time, pose_r=guess_r, pose_t=guess_t,
         pose_time=time, frame_idx=state.frame_idx + 1)
     return state, _zeros_output(cfg, state, guess_r, guess_t, new_map.count(),
-                                dropped, imu_dropped)
+                                dropped, _dropped(imu))
+
+
+def _dropped(imu: ImuWindow | None) -> int:
+    return 0 if imu is None else imu.dropped
+
+
+def _kf_update(cfg: PipelineConfig, state: OdometryState, result, raw_var,
+               scaled_var, var_mean, var_max, align_ok: bool, guess_r, guess_t,
+               time: torch.Tensor) -> eskf_mod.ESKFState:
+    """Fuse the ensemble into the ESKF (the KF branch of the JAX step): the
+    measurement covariance, the update kept only for an aligned frame, and
+    the `init_from_motion` bootstrap on frame 1."""
+    lio = cfg.lio
+    dtype, device = raw_var.dtype, raw_var.device
+    if not align_ok:
+        return state.eskf
+    if lio.use_const_cov or cfg.icp.particle_count == 1:
+        ct, cr = lio.const_cov
+        meas_var = torch.tensor([ct, ct, ct, cr, cr, cr], dtype=dtype, device=device)
+    elif lio.cov_filter == "mean":
+        # the mean ring holds raw variances: scale after the mean
+        meas_var = var_mean * torch.tensor(lio.icp_cov_scales, dtype=dtype,
+                                           device=device)
+    elif lio.cov_filter == "max_sliding_window":
+        meas_var = var_max                  # the max ring holds scaled ones
+    else:
+        meas_var = scaled_var
+    ekf = eskf_mod.update(state.eskf, torch.diag(meas_var), result.mean)
+    if not (lio.init_from_motion and state.frame_idx == 1):
+        return ekf
+    # cold-start bootstrap: adopt the full ICP pose on the first aligned
+    # frame when its correction shows motion outside the velocity prior
+    tc = result.mean[:3]
+    dt_f = torch.clamp_min(time - state.pose_time, 1e-3)
+    vel_std = torch.tensor(lio.init_vel_std, dtype=dtype, device=device)
+    if not bool(torch.linalg.vector_norm(tc)
+                > 3.0 * dt_f * torch.linalg.vector_norm(vel_std)):
+        return ekf
+    full_r, full_t = geo.transform_compose(guess_r, guess_t,
+                                           geo.so3_exp(result.mean[3:]), tc)
+    cov = ekf.cov.clone()
+    cov[3:6, :] = 0.0
+    cov[:, 3:6] = 0.0
+    cov[3:6, 3:6] = torch.diag(2.0 * raw_var[:3].clamp_min(1e-6) / (dt_f * dt_f))
+    return ekf._replace(
+        nav=imu_mod.NavState(full_r, full_t, (full_t - state.pose_t) / dt_f),
+        cov=cov)
 
 
 def draw_particles(cfg: PipelineConfig, state: OdometryState) -> torch.Tensor:
@@ -203,13 +276,18 @@ def draw_particles(cfg: PipelineConfig, state: OdometryState) -> torch.Tensor:
 
 def odometry_step(cfg: PipelineConfig, state: OdometryState, to_map, source,
                   time: torch.Tensor, init_particles=None,
-                  skip_insert: bool = False, imu_dropped: int = 0):
+                  skip_insert: bool = False, imu: ImuWindow | None = None):
     """One frame from its preprocessed clouds -> (new state, FrameOutput).
     `init_particles` [P,6] replaces the frame's own particle draw (parity
-    tests feed the JAX package's draws here)."""
+    tests feed the JAX package's draws here); `imu` is the frame's IMU
+    window, which KF mode propagates the filter over first."""
     icp = cfg.icp
     dtype, device = state.pose_t.dtype, state.pose_t.device
-    guess_r, guess_t = _predict_pose(state, time)
+    kf = cfg.lio.estimator == "kf"
+    if kf:
+        state = state._replace(eskf=_imu_scan_predict(
+            state.eskf, imu, cfg.imu, cfg.lio.textbook_phi))
+    guess_r, guess_t = _predict_pose(cfg, state, time)
     if init_particles is None:
         init_particles = draw_particles(cfg, state)
     else:
@@ -238,9 +316,17 @@ def odometry_step(cfg: PipelineConfig, state: OdometryState, to_map, source,
     rings = (smoother.push(state.rings, raw_var, scaled_var) if align_ok
              else state.rings)
     var_max = smoother.max_filtered(rings)
-    safe_mean = result.mean if align_ok else torch.zeros_like(result.mean)
-    pose_r, pose_t = geo.transform_compose(
-        guess_r, guess_t, geo.so3_exp(safe_mean[3:]), safe_mean[:3])
+    if kf:
+        ekf = _kf_update(cfg, state, result, raw_var, scaled_var, var_mean,
+                         var_max, align_ok, guess_r, guess_t, time)
+        pose_r, pose_t = ekf.nav.r, ekf.nav.t
+        var_rw = eskf_mod.random_walk_variance(ekf)
+    else:
+        ekf = state.eskf
+        safe_mean = result.mean if align_ok else torch.zeros_like(result.mean)
+        pose_r, pose_t = geo.transform_compose(
+            guess_r, guess_t, geo.so3_exp(safe_mean[3:]), safe_mean[:3])
+        var_rw = torch.zeros(6, dtype=dtype, device=device)
 
     do_insert = (align_ok and not skip_insert
                  and state.frame_idx % cfg.map.insert_every == 0)
@@ -251,21 +337,19 @@ def odometry_step(cfg: PipelineConfig, state: OdometryState, to_map, source,
         dropped = torch.zeros((), dtype=torch.int64, device=device)
 
     new_state = OdometryState(
-        vmap=new_map, eskf=state.eskf, pose_r=pose_r, pose_t=pose_t,
+        vmap=new_map, eskf=ekf, pose_r=pose_r, pose_t=pose_t,
         prev_r=state.pose_r, prev_t=state.pose_t, pose_time=time,
         prev_time=state.pose_time, rings=rings, rng=state.rng,
         frame_idx=state.frame_idx + 1)
     out = FrameOutput(
         pose_r=pose_r, pose_t=pose_t, guess_r=guess_r, guess_t=guess_t,
-        velocity=state.eskf.nav.v, particles=result.particles,
+        velocity=ekf.nav.v, particles=result.particles,
         weights=result.weights, var_icp=raw_var, var_mean=var_mean,
-        var_max_sliding=var_max, var_random_walk=torch.zeros(6, dtype=dtype,
-                                                            device=device),
-        cov=result.cov, icp_iterations=result.iterations,
+        var_max_sliding=var_max, var_random_walk=var_rw, cov=result.cov, icp_iterations=result.iterations,
         icp_grad_norm=result.grad_norm, align_ok=align_ok,
         map_points=new_map.count(), map_dropped=dropped,
-        target_overflow=overflow, imu_dropped=imu_dropped,
-        kf_gain=state.eskf.gain, kf_cov_diag=torch.diagonal(state.eskf.cov),
+        target_overflow=overflow, imu_dropped=_dropped(imu),
+        kf_gain=ekf.gain, kf_cov_diag=torch.diagonal(ekf.cov),
         history=torch.zeros((0, icp.particle_count, 6), dtype=dtype,
                             device=device))
     return new_state, out
@@ -273,7 +357,7 @@ def odometry_step(cfg: PipelineConfig, state: OdometryState, to_map, source,
 
 def odometry_step_pre(cfg: PipelineConfig, state: OdometryState, ds_buf,
                       n_map: int, time: torch.Tensor, init_particles=None,
-                      skip_insert: bool = False, imu_dropped: int = 0):
+                      skip_insert: bool = False, imu: ImuWindow | None = None):
     """One frame from a host-preprocessed cloud (the JAX package's
     `odometry_step_packed_pre`): ds_buf [2*source_capacity,3] holds the
     stage-A rows; the stage-B source is derived on the device with the same
@@ -286,17 +370,17 @@ def odometry_step_pre(cfg: PipelineConfig, state: OdometryState, ds_buf,
     source = pc.downsample_uniform(to_map, 1.5 * cfg.preprocess.voxel_size,
                                    cfg.icp.source_capacity)
     return odometry_step(cfg, state, to_map, source, time, init_particles,
-                         skip_insert, imu_dropped)
+                         skip_insert, imu)
 
 
 def odometry_step_raw(cfg: PipelineConfig, state: OdometryState, points,
                       valid, time, init_particles=None,
-                      skip_insert: bool = False, imu_dropped: int = 0):
+                      skip_insert: bool = False, imu: ImuWindow | None = None):
     """One frame from the raw (cropped, padded) scan: preprocess on the
     device, then step."""
     _, to_map, source = _preprocess(cfg, points, valid)
     return odometry_step(cfg, state, to_map, source, time, init_particles,
-                         skip_insert, imu_dropped)
+                         skip_insert, imu)
 
 
 class LIOPipeline(IngestDriver):
@@ -348,11 +432,11 @@ class LIOPipeline(IngestDriver):
             return None
         host_ds = self.cfg.preprocess.host_downsample and self._frames > 0
         if self._frames == 0:
-            rows, n, n_drop = self._pack_frame(t, points)
+            rows, n, imu = self._pack_frame(t, points)
             with self.timer.span("dispatch"):
                 pts, valid = self._upload(rows, n)
                 self.state, out = bootstrap(self.cfg, self.state, pts, valid,
-                                            self._time(t), n_drop)
+                                            self._time(t), imu)
             self._record_frame(t, out)
             return out
         if host_ds and self.cfg.stage_ahead:
@@ -360,24 +444,24 @@ class LIOPipeline(IngestDriver):
         if self._pending:
             self.flush()    # staging mode changed mid-stream: keep order
         if host_ds:
-            ds_buf, n_map, n_drop = self._pack_frame_pre(t, points)
-            out = self._dispatch_pre(t, ds_buf, n_map, n_drop, self._frames,
+            ds_buf, n_map, imu = self._pack_frame_pre(t, points)
+            out = self._dispatch_pre(t, ds_buf, n_map, imu, self._frames,
                                      init_particles)
         else:
-            rows, n, n_drop = self._pack_frame(t, points)
+            rows, n, imu = self._pack_frame(t, points)
             with self.timer.span("dispatch"):
                 pts, valid = self._upload(rows, n)
                 self.state, out = odometry_step_raw(
                     self.cfg, self.state, pts, valid, self._time(t),
-                    init_particles, self._skip_insert(self._frames), n_drop)
+                    init_particles, self._skip_insert(self._frames), imu)
         self._record_frame(t, out)
         return out
 
-    def _dispatch_pre(self, t, ds_buf, n_map, n_drop, frame_idx, init_particles):
+    def _dispatch_pre(self, t, ds_buf, n_map, imu, frame_idx, init_particles):
         with self.timer.span("dispatch"):
             self.state, out = odometry_step_pre(
                 self.cfg, self.state, ds_buf, n_map, self._time(t),
-                init_particles, self._skip_insert(frame_idx), n_drop)
+                init_particles, self._skip_insert(frame_idx), imu)
         return out
 
     def _record_frame(self, t: float, out: FrameOutput) -> None:

@@ -81,6 +81,43 @@ def test_plane_moments_kernel(dev, p, b, k, ties):
     torch.testing.assert_close(b_k, b_p, rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("p,b,k", [(1, 7, 3), (10, 300, 12), (30, 1000, 100)])
+def test_point_moments_kernel(dev, p, b, k, ties):
+    # candidate j sits 0.1 (j+1) m from its point, a sixth of the points
+    # lie beyond the gate, 10% of the slots and of the points are invalid,
+    # and K is padded to a multiple of 8 as on the path. With `ties`,
+    # candidate 1 takes candidate 0's score features but another position,
+    # an exact tie whose points must be averaged.
+    g = torch.Generator().manual_seed(p * b + k)
+    src = torch.randn((b, 3), generator=g) * 5
+    dirs = torch.nn.functional.normalize(torch.randn((b, k, 3), generator=g), dim=-1)
+    radius = (0.1 + 0.1 * torch.arange(k))[None, :].repeat(b, 1)
+    radius[: b // 6] += 3.0
+    cand = src[:, None, :] + dirs * radius[..., None]
+    cvalid = torch.rand((b, k), generator=g) > 0.1
+    valid = torch.rand(b, generator=g) > 0.1
+    xi = torch.randn((p, 6), generator=g) * 1e-4
+    params = torch.cat([geo.so3_exp(xi[:, 3:]).reshape(p, 9), xi[:, :3]], -1)
+    src, cand, cvalid, valid, params = (
+        x.to(dev) for x in (src, cand, cvalid, valid, params))
+    cand, cvalid = nn.pad_candidates(cand, cvalid, multiple=8)
+    feat, bias = svn.correspondence_features(src, cand, cvalid)
+    prep = nn.prepare_moments_point(feat, bias, cand, src, valid)
+    if ties:
+        prep.feat13[:, 1] = prep.feat13[:, 0]
+        prep.cand_t[:, 1] = prep.cand_t[:, 0] + 0.05
+    before = nn.point_moments.launches
+    h_k, b_k = nn.point_moments(params.contiguous(), prep, 3.0)
+    torch.cuda.synchronize()
+    assert nn.point_moments.launches == before + 1
+    h_p, b_p = nn.point_moments_plain(params, prep, 3.0)
+    torch.testing.assert_close(h_k, h_p, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(b_k, b_p, rtol=1e-4, atol=1e-3)
+    h_k2, b_k2 = nn.point_moments(params.contiguous(), prep, 3.0)
+    assert torch.equal(h_k, h_k2) and torch.equal(b_k, b_k2)
+
+
 @pytest.mark.parametrize("use_prior", [False, True])
 @pytest.mark.parametrize("p", [2, 10, 64, 200])
 def test_stein_kernel(dev, p, use_prior):

@@ -2,7 +2,9 @@
 the oracle the CUDA kernels are held to on the card) against the Pallas
 kernels they replace, run in interpret mode on the CPU:
 B1 nn_pallas.bucketed_candidates, B2 nn_pallas.fused_moments_plane_kb,
-B3 stein_pallas.stein_update."""
+B3 stein_pallas.stein_update, B4 nn_pallas.fused_moments_kb."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,7 @@ from svnicp_tpu.core import residuals as jres
 from svnicp_tpu.core import svn as jsvn
 from svnicp_tpu.kernels import knn as jknn
 from svnicp_tpu.kernels import nn_pallas, stein_pallas
+from svnicp_tpu_torch.config import SteinICPConfig
 from svnicp_tpu_torch.core import svn as tsvn
 from svnicp_tpu_torch.kernels import knn as tknn
 from svnicp_tpu_torch.kernels import nn as tnn
@@ -158,7 +161,7 @@ def test_plane_moments_ties_are_averaged(rng):
             jnp.asarray(params), jnp.asarray(feat13), jnp.asarray(nq),
             jnp.asarray(src_t), jnp.asarray(nrm_t), jnp.asarray(vmask), max_dist,
             particle_tile=p, point_tile=b, interpret=True)
-        prep_t = tnn.MomentsPrep(*(torch.from_numpy(x) for x in
+        prep_t = tnn.PlanePrep(*(torch.from_numpy(x) for x in
                                    (feat13, nq, src_t, nrm_t, vmask.reshape(b))))
         h_t, b_t = tnn.plane_moments(torch.from_numpy(params), prep_t, max_dist)
         np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), rtol=1e-4, atol=1e-4)
@@ -168,6 +171,137 @@ def test_plane_moments_ties_are_averaged(rng):
     b_tied = both(ndotc[0] + 0.2)
     b_first = both(ndotc[0])
     assert np.abs(b_tied - b_first).max() > 1e-2 * np.abs(b_first).max()
+
+
+def _point_moments_both(params, feat13, cand_t, src_t, vmask, max_dist):
+    """B4 on prepared operands: (Pallas interpret, port's wrapper) -> (H, b)."""
+    p, b = params.shape[0], src_t.shape[1]
+    h_j, b_j = nn_pallas.fused_moments_kb(
+        jnp.asarray(params), jnp.asarray(feat13), jnp.asarray(cand_t),
+        jnp.asarray(src_t), jnp.asarray(vmask.reshape(1, b)), max_dist,
+        particle_tile=p, point_tile=b, interpret=True)
+    prep_t = tnn.PointPrep(*(torch.from_numpy(np.ascontiguousarray(x)) for x in
+                             (feat13, cand_t, src_t, vmask.reshape(b))))
+    h_t, b_t = tnn.point_moments(torch.from_numpy(params), prep_t, max_dist)
+    return (np.asarray(h_j), np.asarray(b_j)), (h_t.numpy(), b_t.numpy())
+
+
+def _point_prep_port(source, src_valid, cand, cvalid):
+    cand_t, cvalid_t = tnn.pad_candidates(torch.from_numpy(cand),
+                                          torch.from_numpy(cvalid), multiple=8)
+    feat, bias = tsvn.correspondence_features(torch.from_numpy(source), cand_t,
+                                              cvalid_t)
+    return tnn.prepare_moments_point(feat, bias, cand_t, torch.from_numpy(source),
+                                     torch.from_numpy(src_valid))
+
+
+@pytest.mark.parametrize("p,b,k", [(8, 64, 12), (10, 128, 100), (30, 96, 5)])
+def test_point_moments_plain_matches_pallas(rng, p, b, k):
+    """K not a multiple of 8: both sides pad it to one with invalid slots,
+    as the JAX package's align does before its kernel."""
+    source, src_valid, cand, cvalid, params = _moments_problem(rng, p, b, k)
+    cvalid[3] = False                  # a point with no valid candidate
+    max_dist = 2.8
+    cand_p, cvalid_p = nn_pallas.pad_candidates(jnp.asarray(cand),
+                                                jnp.asarray(cvalid), multiple=8)
+    assert cand_p.shape[1] % 8 == 0 and cand_p.shape[1] > k
+    h_j, b_j = nn_pallas.fused_moments(
+        jnp.asarray(params), *jsvn.correspondence_features(
+            jnp.asarray(source), cand_p, cvalid_p), cand_p,
+        jnp.asarray(source), jnp.asarray(src_valid), max_dist,
+        particle_tile=p, point_tile=b, interpret=True)
+    prep_t = _point_prep_port(source, src_valid, cand, cvalid)
+    assert prep_t.feat13.shape[1] == cand_p.shape[1]
+    h_t, b_t = tnn.point_moments(torch.from_numpy(params), prep_t, max_dist)
+    assert np.isfinite(h_t.numpy()).all() and np.isfinite(b_t.numpy()).all()
+    np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(b_t.numpy(), np.asarray(b_j), rtol=1e-4, atol=1e-3)
+
+
+def test_point_moments_ties_are_averaged(rng):
+    """Candidate 1 repeats candidate 0's score features exactly but sits
+    elsewhere: both tie at the minimum and the Pallas kernel and the plain
+    version match the mean of the two points (a first-index rule would give
+    the result with candidate 1 at candidate 0's place)."""
+    p, b, k, max_dist = 8, 128, 8, 2.8
+    source = (rng.normal(size=(b, 3)) * 5).astype(np.float32)
+    dirs = rng.normal(size=(b, k, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    cand = (source[:, None, :] + dirs * (0.3 + 0.1 * np.arange(k))[None, :, None]
+            ).astype(np.float32)
+    feat13, cand_t, src_t, vmask = (np.array(x) for x in nn_pallas.prepare_moments_kb(
+        *jsvn.correspondence_features(jnp.asarray(source), jnp.asarray(cand),
+                                      jnp.ones((b, k), bool)),
+        jnp.asarray(cand), jnp.asarray(source), jnp.ones(b, bool)))
+    feat13[:, 1, :] = feat13[:, 0, :]
+    xi = (rng.normal(size=(p, 6)) * 0.01).astype(np.float32)
+    params = np.concatenate([np.asarray(jgeo.bso3_exp(jnp.asarray(xi[:, 3:]))
+                                        ).reshape(p, 9), xi[:, :3]], axis=-1)
+
+    def both(cand1):
+        ct = cand_t.copy()
+        ct[:, 1] = cand1
+        (h_j, b_j), (h_t, b_t) = _point_moments_both(params, feat13, ct, src_t,
+                                                     vmask, max_dist)
+        np.testing.assert_allclose(h_t, h_j, rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(b_t, b_j, rtol=1e-4, atol=1e-3)
+        return b_t
+
+    b_tied = both(cand_t[:, 1] + 0.2)
+    b_first = both(cand_t[:, 0])
+    assert np.abs(b_tied - b_first).max() > 1e-2 * np.abs(b_first).max()
+
+
+def test_point_moments_padding_independence(rng):
+    """Padding K with invalid (+inf bias) slots changes neither H nor b: a
+    gated-out pair's identity damping depends only on the real pair."""
+    source, src_valid, cand, cvalid, params = _moments_problem(rng, 8, 64, 16)
+    cvalid[5] = False
+    h1, b1 = tnn.point_moments(torch.from_numpy(params),
+                               _point_prep_port(source, src_valid, cand, cvalid), 2.8)
+    cand_p, cvalid_p = tnn.pad_candidates(torch.from_numpy(cand),
+                                          torch.from_numpy(cvalid), multiple=64)
+    h2, b2 = tnn.point_moments(torch.from_numpy(params), _point_prep_port(
+        source, src_valid, cand_p.numpy(), cvalid_p.numpy()), 2.8)
+    assert cand_p.shape[1] == 64
+    np.testing.assert_allclose(h1.numpy(), h2.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(b1.numpy(), b2.numpy(), rtol=1e-5)
+
+
+def test_point_moments_gated_pairs_damp_and_padded_points_do_not(rng):
+    """Every pair outside the gate: H is sw I in the translation block with
+    sw = the number of real points (padded points add nothing), only the
+    jitter elsewhere, and b is 0."""
+    source, src_valid, cand, cvalid, params = _moments_problem(rng, 4, 64, 8)
+    h, bv = tnn.point_moments(torch.from_numpy(params), _point_prep_port(
+        source, src_valid, cand + 100.0, cvalid), 2.8)
+    n_real = float(src_valid.sum())
+    want = np.zeros((4, 6, 6))
+    want[:, :3, :3] = n_real * np.eye(3)
+    want += 1e-6 * np.eye(6)
+    np.testing.assert_allclose(h.numpy(), want, rtol=1e-6, atol=1e-9)
+    assert not bv.any()
+
+
+@pytest.mark.parametrize("residual,prep_type,plain,averaged", [
+    ("point_to_plane", "PlanePrep", "plane_moments_plain", "ndotc"),
+    ("point_to_point", "PointPrep", "point_moments_plain", "cand_t")])
+def test_moments_runs_the_residual_of_its_prep(rng, residual, prep_type, plain,
+                                               averaged):
+    """`nn.moments`, which every SVN iteration calls, runs the moments
+    function of the residual the align's prep was built for, and the prep
+    names the operand its tied minima average (K on axis -2)."""
+    source, src_valid, cand, cvalid, params = _moments_problem(rng, 6, 64, 12)
+    cfg = dataclasses.replace(SteinICPConfig(), residual=residual)
+    prep = tsvn._prepare_align(cfg, torch.from_numpy(source),
+                               torch.from_numpy(src_valid), torch.from_numpy(cand),
+                               torch.from_numpy(cvalid))
+    assert type(prep).__name__ == prep_type
+    assert prep.averaged is getattr(prep, averaged)
+    assert prep.averaged.shape[-2:] == (16, 64)
+    h, b = tnn.moments(torch.from_numpy(params), prep, 2.8)
+    h_p, b_p = getattr(tnn, plain)(torch.from_numpy(params), prep, 2.8)
+    assert torch.equal(h, h_p) and torch.equal(b, b_p)
 
 
 def _stein_problem(rng, p):

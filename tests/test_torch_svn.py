@@ -10,6 +10,12 @@ package's, at P=8, B=256, K=32:
   between 8 and 40 iterations depending on rounding);
 - float64 against the JAX XLA path under jax.enable_x64, on two noisy scans
   of a synthetic world: to 1e-6 and the same number of iterations.
+The same for the point-to-point residual at the geode_alpha operating
+point's P=10 (K=20, padded to 24 slots by both): float32 against Pallas
+interpret on the planes (to 1e-4, same iterations; at its grad-norm
+stop of 2e-3, where the planes' ensemble crosses the threshold steeply),
+and float64 against the XLA path on the noisy scans at geode's 5e-4, with
+P=10 and the single-particle path.
 The Pallas kernels and the port both average tied minima while the XLA path
 takes the first; the scans are continuous random samples, where ties have
 measure zero.
@@ -155,3 +161,47 @@ def test_single_particle(problem, prior):
     got = tsvn.register(cfg, *args)
     assert got.iterations == want_iters
     np.testing.assert_allclose(got.mean.numpy(), want_mean, atol=1e-6)
+
+
+P2P = dict(method="svn", residual="point_to_point", particle_count=10,
+           iterations=60, max_dist=3.0, knn_count=20, early_stop=True,
+           convergence_threshold=5e-4)
+
+
+def _with_draws(pb, p, seed=3):
+    lb, ub = np.array(SteinICPConfig().init_lb), np.array(SteinICPConfig().init_ub)
+    init = lb + (ub - lb) * np.random.default_rng(seed).random((p, 6))
+    return dict(pb, init=init if p > 1 else np.zeros((1, 6)))
+
+
+def test_point_to_point_f32_matches_pallas_interpret(planes):
+    icp = dict(P2P, convergence_threshold=2e-3)
+    pb = _with_draws(planes, icp["particle_count"])
+    os.environ["SVNICP_PALLAS_INTERPRET"] = "1"
+    try:
+        with pltpu.force_tpu_interpret_mode():
+            want = jsvn.register(JaxICPConfig(**icp, use_pallas=True),
+                                 *_jax_args(pb, jnp.float32))
+    finally:
+        del os.environ["SVNICP_PALLAS_INTERPRET"]
+    got = tsvn.register(SteinICPConfig(**icp, use_pallas=True),
+                        *_torch_args(pb, torch.float32))
+    assert got.iterations == int(want.iterations)
+    assert 1 < got.iterations < icp["iterations"]
+    np.testing.assert_allclose(got.mean.numpy(), np.asarray(want.mean), atol=1e-4)
+
+
+@pytest.mark.parametrize("p", [1, 10])
+def test_point_to_point_f64_matches_xla_path(problem, p):
+    icp = dict(P2P, particle_count=p)
+    pb = _with_draws(problem, p)
+    with jax.enable_x64(True):
+        want = jsvn.register(JaxICPConfig(**icp), *_jax_args(pb, jnp.float64))
+        want_mean, want_var = np.asarray(want.mean), np.asarray(want.var)
+        want_iters = int(want.iterations)
+    got = tsvn.register(SteinICPConfig(**icp, use_pallas=True),
+                        *_torch_args(pb, torch.float64))
+    assert got.iterations == want_iters
+    assert 1 < want_iters < icp["iterations"]
+    np.testing.assert_allclose(got.mean.numpy(), want_mean, atol=1e-6)
+    np.testing.assert_allclose(got.var.numpy(), want_var, rtol=1e-5, atol=1e-9)
