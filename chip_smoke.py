@@ -5,12 +5,12 @@
 
 Phases, each printing its own line(s); any failure raises and exits non-zero:
 1. device: the card's name, `nvidia-smi` name and power limit, TF32 off;
-2. build: nvcc builds the four CUDA kernels (sm_90a) and g++ the host
+2. build: nvcc builds the five CUDA kernels (sm_90a) and g++ the host
    staging library, from the sources in this checkout;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   same inputs on the card, at the shapes of the two paths below and at
+   same inputs on the card, at the shapes of the three paths below and at
    ragged shapes with exact ties, with the kernel's time, the plain
-   version's time and the bound (B1 at both paths' k, B4 also at
+   version's time and the bound (B1 at both k, B4 also at
    configs/subt_mrs.yaml's shapes);
 4. main path: `LIOPipeline(configs/tpu_plane.yaml)` on 3 warm-up + 20 timed
    frames of the bench sequence (32,000-point scans of
@@ -25,12 +25,19 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    trajectory that ramps up from rest, synthetic IMU samples fed before
    each scan), with the launch counts, every frame aligned, a non-zero
    Kalman gain and ATE under the limit taken from the JAX package's own run
-   (GEODE_ATE_LIMIT below).
+   (GEODE_ATE_LIMIT below);
+6. SVGD path: `LIOPipeline(configs/generic_svgd.yaml)` with
+   icp.use_pallas=True, the JAX package's kernel route for SVGD (P=30, Adam,
+   per-point deskew; kernels B1 and B5), on 3 warm-up + 20 timed
+   motion-distorted 32,000-point sweeps of SyntheticWorld(extent=60,
+   seed=7) fed with their per-point times, with the launch counts, the
+   frames aligned as in the JAX package's own run and ATE against the
+   mid-sweep poses under the limit taken from that run (SVGD_ATE_LIMIT).
 Each path's launch counts are set to 0 just before it and read just after.
 With `--profile`, a torch.profiler trace of 5 more frames of each path
 (device-busy share, kernels by device time).
-The last lines are the kernel table as JSON (`launches` summed over the two
-paths), the line `nvidia-smi --query-gpu=name,power.limit
+The last lines are the kernel table as JSON (`launches` summed over the
+three paths), the line `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader` prints, and {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result. It imports nothing of JAX or of
 the JAX package. The whole run takes well under its 1200 s limit; if it ever
@@ -60,6 +67,11 @@ WARMUP, TIMED = 3, 20
 # max(1.5 ATE, ATE + 0.05 m).
 GEODE_JAX_ATE = 0.05608570797270728
 GEODE_ATE_LIMIT = max(1.5 * GEODE_JAX_ATE, GEODE_JAX_ATE + 0.05)
+# The same for the SVGD path (tests/test_torch_svgd_reference.py), whose
+# frames the JAX run aligned as listed.
+SVGD_JAX_ATE = 0.7128996366642155
+SVGD_ATE_LIMIT = max(1.5 * SVGD_JAX_ATE, SVGD_JAX_ATE + 0.05)
+SVGD_JAX_ALIGN_OK = [True] * 23
 
 
 def nvidia_smi_line() -> str:
@@ -144,6 +156,37 @@ def geode_sequence(n_frames: int, n_points: int = 32000):
                                                              GRAVITY)
 
 
+def svgd_sequence(n_frames: int, n_points: int = 32000):
+    """The SVGD path's recipe: motion-distorted sweeps from pose i to pose
+    i+1 of synthetic_trajectory(n_frames + 1, speed=2.0) -> (frame stamps,
+    [(points, per-point times in [0,1])], mid-sweep rotations, translations)."""
+    from svnicp_tpu_torch.io import datasets
+
+    world = datasets.SyntheticWorld(extent=60.0, seed=7)
+    times, rots, trans = datasets.synthetic_trajectory(n_frames + 1, dt=0.1,
+                                                       speed=2.0, seed=7)
+    rng = np.random.default_rng(7)
+    sweeps, gt_r, gt_t = [], [], []
+    for i in range(n_frames):
+        pts, tau, (mr, mt) = world.scan_sweep(rng, rots[i], trans[i], rots[i + 1],
+                                              trans[i + 1], n_points=n_points)
+        sweeps.append((pts, tau))
+        gt_r.append(mr)
+        gt_t.append(mt)
+    return times[:n_frames], sweeps, np.stack(gt_r), np.stack(gt_t)
+
+
+def svgd_config():
+    """configs/generic_svgd.yaml on the JAX package's kernel route for SVGD
+    (icp.use_pallas=True; the file leaves the XLA route on)."""
+    import dataclasses
+
+    from svnicp_tpu_torch import config as cfg_mod
+
+    cfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "generic_svgd.yaml"))
+    return dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, use_pallas=True))
+
+
 # ------------------------------------------------------------------ B1 inputs
 
 def stage1_inputs(cfg, scans, dev):
@@ -169,7 +212,8 @@ def stage1_inputs(cfg, scans, dev):
     raw = np.zeros((cfg.preprocess.raw_capacity, 3), np.float32)
     n = min(len(scans[2]), len(raw))
     raw[:n] = scans[2][:n]
-    _, _, source = pl._preprocess(cfg, torch.from_numpy(raw).to(dev),
+    _, _, source = pl._preprocess(cfg, pl.init_state(cfg, dev),
+                                  torch.from_numpy(raw).to(dev),
                                   torch.arange(len(raw), device=dev) < n)
     return source.points, source.valid, target.points, target.valid
 
@@ -333,6 +377,119 @@ def check_moments(name, params, prep, max_dist, rows, ties=False):
     return abs_err
 
 
+# ------------------------------------------------------------------ B5 inputs
+
+def svgd_match_inputs(icp, src, sv, tgt, tv, dev):
+    """The SVGD path's own B5 operands: the stage-1 candidates of the B1
+    inputs at the path's k, the per-frame prep of the SVGD loop and P
+    particles drawn in the prior box as [vec(R), t] of their Euler angles."""
+    import torch
+
+    from svnicp_tpu_torch.core import geometry as geo
+    from svnicp_tpu_torch.core import svgd
+    from svnicp_tpu_torch.kernels import nn
+
+    p = icp.particle_count
+    cand, d2 = nn.bucketed_candidates(src, tgt, sv, tv, icp.knn_count)
+    prep = svgd.prepare(src, sv, cand, torch.isfinite(d2))
+    g = torch.Generator().manual_seed(6)
+    lo, hi = torch.tensor(icp.init_lb), torch.tensor(icp.init_ub)
+    draw = lo + (hi - lo) * torch.rand((p, 6), generator=g)
+    r = geo.euler_zyx_to_matrix(draw[:, 3], draw[:, 4], draw[:, 5])
+    params = torch.cat([r.reshape(p, 9), draw[:, :3]], -1)
+    return params.to(dev).contiguous(), prep
+
+
+def check_nn_match(name, params, prep, rows, ties=False):
+    """B5 against the plain version run in float64 on the same operands
+    (the float32 plain version's figures beside it). Where both are finite
+    the kernel's best score must be within twice the float32 plain
+    version's largest error plus 1e-6 of the largest |score|. A pair whose
+    matched point differs from float64's by more than 1e-4 m picked another
+    candidate: it must be a near-tie in float64 (runner-up score within
+    1e-5 max(|T s|^2, 1) of the minimum, the scale of float32 rounding in
+    the 13-term score) and such pairs fewer than 0.1%; every other pair's
+    point within 1e-4 m. Pairs whose best is +inf (no valid candidate)
+    must agree in that and are not compared further: their point is gated
+    out downstream. A repeat run must give the same bits. With `ties`
+    (candidates 0 and 1 tied, see tied_moments_inputs) the kernel's points
+    must lie ten times farther from the first-index answer than from the
+    tie-averaged one."""
+    import torch
+
+    from svnicp_tpu_torch.kernels import nn
+
+    m_k, b_k = nn.nn_match(params, prep)
+    torch.cuda.synchronize()
+    m_k2, b_k2 = nn.nn_match(params, prep)
+    assert torch.equal(m_k, m_k2) and torch.equal(b_k, b_k2), \
+        f"{name}: B5 nn_match is not deterministic"
+    m_p, b_p = nn.nn_match_plain(params, prep)
+    p64 = params.double()
+    m64, b64 = nn.nn_match_plain(p64, _double(prep))
+    fin = torch.isfinite(b64)
+    assert torch.equal(torch.isfinite(b_k), fin), f"{name}: B5 validity differs"
+    rot, trn = p64[:, :9].reshape(-1, 3, 3), p64[:, 9:]
+    ts = torch.einsum("pij,jb->pbi", rot, _double(prep).src_t) + trn[:, None, :]
+    scale = (ts * ts).sum(-1).clamp_min(1.0)
+    params13 = torch.cat([p64, p64.new_ones((p64.shape[0], 1))], dim=-1)
+    score = torch.einsum("pc,ckb->pkb", params13, prep.feat13.double())
+    two = torch.topk(score, 2, dim=1, largest=False).values
+    del score
+    near_tie = fin & ((two[:, 1] - two[:, 0]) <= 1e-5 * scale)
+
+    def split(m):
+        diff = (m.double() - m64).abs().amax(-1)
+        differ = fin & (diff > 1e-4)
+        same = fin & ~differ
+        return differ, (diff[same].max().item() if same.any() else 0.0)
+
+    differ_k, pt_k = split(m_k)
+    differ_p, pt_p = split(m_p)
+    n_fin = max(int(fin.sum()), 1)
+    top = b64[fin].abs().max().item() if fin.any() else 1.0
+    eb_k = (b_k.double() - b64)[fin].abs().max().item() if fin.any() else 0.0
+    eb_p = (b_p.double() - b64)[fin].abs().max().item() if fin.any() else 0.0
+    print(f"kernel B5 nn_match {name}: max error vs float64 on finite pairs: best "
+          f"kernel {eb_k:.3g} plain {eb_p:.3g} (max|best| {top:.3g}), point "
+          f"kernel {pt_k:.3g} plain {pt_p:.3g} m on agreeing pairs; pairs "
+          f"matching another candidate: kernel {int(differ_k.sum())} plain "
+          f"{int(differ_p.sum())} of {n_fin} ({int(near_tie.sum())} near-ties); "
+          f"repeat run bit-identical")
+    assert eb_k <= 2 * eb_p + 1e-6 * top, f"{name}: B5 best"
+    assert pt_k <= 1e-4, f"{name}: B5 matched points"
+    assert bool((near_tie | ~differ_k).all()), f"{name}: B5 differs at a non-tie"
+    assert int(differ_k.sum()) < 1e-3 * n_fin, f"{name}: B5 too many differing pairs"
+    if ties:
+        first = _first_index(prep)
+        m_first, _ = nn.nn_match_plain(p64, first)
+        e_first = (m_k.double() - m_first).abs()[fin].max().item()
+        e_avg = (m_k.double() - m64).abs()[fin].max().item()
+        print(f"kernel B5 nn_match {name}: points are {e_first:.3g} m from the "
+              f"first-index answer, {e_avg:.3g} m from the tie-averaged one")
+        assert e_first > 10 * e_avg, f"{name}: B5 does not average ties"
+    err = max((m_k - m_p).abs()[fin].max().item() if fin.any() else 0.0,
+              (b_k - b_p).abs()[fin].max().item() if fin.any() else 0.0)
+    rows.append(err)
+    return err
+
+
+def match_bound(params, prep, k: int) -> tuple[float, str]:
+    """What the 1-NN match needs: each of the k stage-1 candidate slots'
+    3 coordinates and |c|^2 (+inf marks an invalid slot) read once, the
+    particles, and 4 floats written per (particle, point); 8 operations per
+    (particle, valid slot) for |c|^2 - 2 c.(T s), 15 per (particle, real
+    point) for T s."""
+    import torch
+
+    p, b = params.shape[0], prep.vmask.shape[0]
+    n_slots = int(torch.isfinite(prep.feat13[12]).sum())
+    n_pts = int((prep.vmask > 0).sum())
+    nbytes = b * k * 16 + p * 12 * 4 + p * b * 16
+    flops = p * (8.0 * n_slots + 15.0 * n_pts)
+    return bound_ms(flops, nbytes)
+
+
 # ------------------------------------------------------------------ B3 inputs
 
 def stein_inputs(p, dev, seed):
@@ -418,6 +575,8 @@ KERNELS = {  # key: (wrapper path in the port, JSON name, source, TPU kernel)
            "svnicp_tpu_torch/csrc/stein.cu", "svnicp_tpu/kernels/stein_pallas.py:227"),
     "B4": ("nn.point_moments", "point_moments",
            "svnicp_tpu_torch/csrc/point_moments.cu", "svnicp_tpu/kernels/nn_pallas.py:254"),
+    "B5": ("nn.nn_match", "nn_match",
+           "svnicp_tpu_torch/csrc/nn_match.cu", "svnicp_tpu/kernels/nn_pallas.py:65"),
 }
 
 
@@ -429,12 +588,13 @@ def _wrapper(key):
 
 
 def feed(pipe, frames, lo: int, hi: int) -> None:
-    """Feed frames lo..hi-1, each (t, scan, imu sample or None): the IMU
-    sample first, as a sensor stream delivers it before the scan it ends."""
-    for t, scan, imu in frames[lo:hi]:
+    """Feed frames lo..hi-1, each (t, scan, imu sample or None, per-point
+    times or None): the IMU sample first, as a sensor stream delivers it
+    before the scan it ends."""
+    for t, scan, imu, tau in frames[lo:hi]:
         if imu is not None:
             pipe.feed_imu(*imu)
-        pipe.feed_scan(float(t), scan)
+        pipe.feed_scan(float(t), scan, timestamps=tau)
 
 
 def run_path(cfg, frames):
@@ -460,9 +620,10 @@ def run_path(cfg, frames):
     return pipe, dt, {key: _wrapper(key).launches for key in KERNELS}
 
 
-def report_path(name, pipe, dt, launches, rots, trans, smi) -> float:
+def report_path(name, pipe, dt, launches, rots, trans, smi, align_ok=None) -> float:
     """Print a path's frames/s, iterations, align_ok, ATE and launches and
-    check what every path must show -> ATE [m]."""
+    check what every path must show (every frame aligned, or those of
+    `align_ok`) -> ATE [m]."""
     from svnicp_tpu_torch.io import metrics
 
     n = WARMUP + TIMED
@@ -481,7 +642,8 @@ def report_path(name, pipe, dt, launches, rots, trans, smi) -> float:
           f"stage times {pipe.timer.report()}")
     assert len(outs) == n, len(outs)
     assert launches["B1"] == n - 1, launches
-    assert all(o.align_ok for o in outs)
+    want_ok = [True] * n if align_ok is None else list(align_ok)
+    assert [o.align_ok for o in outs] == want_ok, want_ok
     assert np.isfinite(traj).all()
     return ate
 
@@ -582,9 +744,11 @@ def main() -> int:
     cfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "tpu_plane.yaml"))
     gcfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "geode_alpha.yaml"))
     scfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "subt_mrs.yaml"))
+    vcfg = svgd_config()
     n_frames = WARMUP + TIMED
     times, rots, trans, scans = bench_sequence(n_frames)
     gtimes, grots, gtrans, gscans, gimu = geode_sequence(n_frames)
+    vtimes, vsweeps, vgt_r, vgt_t = svgd_sequence(n_frames)
     icp, gicp = cfg.icp, gcfg.icp
     p, k = icp.particle_count, icp.knn_count
 
@@ -662,6 +826,24 @@ def main() -> int:
         time_point_moments(sparams, sprep, scfg.icp)
     del ssrc, ssv, stgt, stv, sparams, sprep
 
+    # B5: the SVGD path's own operands, ragged with ties
+    vicp = vcfg.icp
+    vsrc, vsv, vtgt, vtv = stage1_inputs(vcfg, [sw[0] for sw in vsweeps], dev)
+    check_stage1(f"svgd B={vsrc.shape[0]} Nt={vtgt.shape[0]} k={vicp.knn_count}",
+                 vsrc, vsv, vtgt, vtv, vicp.knn_count, errs["B1"])
+    vparams, vprep = svgd_match_inputs(vicp, vsrc, vsv, vtgt, vtv, dev)
+    check_nn_match(f"svgd P={vicp.particle_count} B={vicp.source_capacity} "
+                   f"K={vprep.feat13.shape[1]}", vparams, vprep, errs["B5"])
+    params_r, prep_r = tied_moments_inputs(gicp, 10, 300, 12, dev, seed=16)
+    check_nn_match(f"ragged P=10 B=300 K={prep_r.feat13.shape[1]} with ties",
+                   params_r, prep_r, errs["B5"], ties=True)
+    call = cuda_time_ms(lambda: nn.nn_match(vparams, vprep), 50)
+    ms = device_ms(lambda: nn.nn_match(vparams, vprep), 50, ["nn_match_kernel"])
+    plain = device_ms(lambda: nn.nn_match_plain(vparams, vprep), 10)
+    b_ms, b_by = match_bound(vparams, vprep, vicp.knn_count)
+    table["B5"] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+    del vsrc, vsv, vtgt, vtv, vparams, vprep
+
     hess, bb, r, t, prior = stein_inputs(p, dev, seed=13)
     check_stein(f"main P={p}", hess, bb, r, t, prior, errs["B3"])
     check_stein("ragged P=10", *stein_inputs(10, dev, seed=14), errs["B3"])
@@ -692,13 +874,13 @@ def main() -> int:
               f"({row['bound_by']})  library_ms: none  [{smi}]")
 
     # ---- 4. main path
-    frames = [(times[i], scans[i], None) for i in range(n_frames)]
+    frames = [(times[i], scans[i], None, None) for i in range(n_frames)]
     pipe, dt, launches = run_path(cfg, frames)
     ate = report_path("main path (configs/tpu_plane.yaml)", pipe, dt, launches,
                       rots, trans, smi)
     iters = sum(o.icp_iterations for o in pipe.outputs)
     assert launches["B2"] == iters == launches["B3"], (launches, iters)
-    assert launches["B4"] == 0, launches
+    assert launches["B4"] == launches["B5"] == 0, launches
     assert ate < 0.2, ate
     early_stop_cost(cfg, src, sv, tgt, tv, dev)
     if args.profile:
@@ -706,7 +888,7 @@ def main() -> int:
     del src, sv, tgt, tv, params, prep
 
     # ---- 5. GEODE-Alpha path
-    gframes = [(gtimes[i], gscans[i], gimu[i]) for i in range(n_frames)]
+    gframes = [(gtimes[i], gscans[i], gimu[i], None) for i in range(n_frames)]
     gpipe, gdt, glaunches = run_path(gcfg, gframes)
     gate = report_path("geode path (configs/geode_alpha.yaml)", gpipe, gdt,
                        glaunches, grots, gtrans, smi)
@@ -716,17 +898,33 @@ def main() -> int:
           f"ATE limit {GEODE_ATE_LIMIT:.4f} m (the JAX package's float32 run: "
           f"{GEODE_JAX_ATE:.4f} m)")
     assert glaunches["B4"] == giters == glaunches["B3"], (glaunches, giters)
-    assert glaunches["B2"] == 0, glaunches
+    assert glaunches["B2"] == glaunches["B5"] == 0, glaunches
     assert all(x > 0 for x in gains[1:]), gains
     assert gate < GEODE_ATE_LIMIT, (gate, GEODE_ATE_LIMIT)
     if args.profile:
         profile_frames(gcfg, gframes, WARMUP, 5)
 
+    # ---- 6. SVGD path
+    vframes = [(vtimes[i], vsweeps[i][0], None, vsweeps[i][1]) for i in range(n_frames)]
+    vpipe, vdt, vlaunches = run_path(vcfg, vframes)
+    vate = report_path("svgd path (configs/generic_svgd.yaml, use_pallas=True)",
+                       vpipe, vdt, vlaunches, vgt_r, vgt_t, smi, SVGD_JAX_ALIGN_OK)
+    viters = sum(o.icp_iterations for o in vpipe.outputs)
+    steps = [f"{float(o.icp_grad_norm):.3g}" for o in vpipe.outputs[1:]]
+    print(f"svgd path: last mean particle step per frame {steps}; ATE against the "
+          f"mid-sweep poses, limit {SVGD_ATE_LIMIT:.4f} m (the JAX package's "
+          f"float32 run: {SVGD_JAX_ATE:.4f} m)")
+    assert vlaunches["B5"] == viters > 0, (vlaunches, viters)
+    assert vlaunches["B2"] == vlaunches["B3"] == vlaunches["B4"] == 0, vlaunches
+    assert vate < SVGD_ATE_LIMIT, (vate, SVGD_ATE_LIMIT)
+    if args.profile:
+        profile_frames(vcfg, vframes, WARMUP, 5)
+
     rows = []
     for key, (_, name, source, replaces) in KERNELS.items():
         row = table[key]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=launches[key] + glaunches[key],
+                         launches=launches[key] + glaunches[key] + vlaunches[key],
                          max_abs_err=max(errs[key]), ms=row["ms"],
                          plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                          bound_by=row["bound_by"], library_ms=None))

@@ -105,6 +105,31 @@ def euler_zyx_to_matrix(roll: torch.Tensor, pitch: torch.Tensor,
     ], dim=-2)
 
 
+def euler_zyx_partials(roll: torch.Tensor, pitch: torch.Tensor,
+                       yaw: torch.Tensor) -> torch.Tensor:
+    """dR/d(roll, pitch, yaw) of `euler_zyx_to_matrix` in closed form;
+    [...] angles -> [...,3,3,3], the angle on axis -3 (the JAX package takes
+    `jax.jacfwd` of the same matrix)."""
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    zero = torch.zeros_like(cy)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    d_roll = mat([[zero, cr * sp * cy + sr * sy, cr * sy - sr * sp * cy],
+                  [zero, cr * sp * sy - sr * cy, -sr * sp * sy - cr * cy],
+                  [zero, cr * cp, -sr * cp]])
+    d_pitch = mat([[-sp * cy, sr * cp * cy, cr * cp * cy],
+                   [-sp * sy, sr * cp * sy, cr * cp * sy],
+                   [-cp, -sr * sp, -cr * sp]])
+    d_yaw = mat([[-cp * sy, -sr * sp * sy - cr * cy, sr * cy - cr * sp * sy],
+                 [cp * cy, sr * sp * cy - cr * sy, sr * sy + cr * sp * cy],
+                 [zero, zero, zero]])
+    return torch.stack([d_roll, d_pitch, d_yaw], dim=-3)
+
+
 def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[...,6] = [rho, omega] -> (R [...,3,3], t = J_l(omega) rho)."""
     rho, omega = xi[..., :3], xi[..., 3:]

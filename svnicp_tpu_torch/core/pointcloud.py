@@ -1,4 +1,4 @@
-"""Fixed-capacity padded point clouds: crop and uniform downsample.
+"""Fixed-capacity padded point clouds: crop, uniform downsample, deskew.
 
 Port of `svnicp_tpu/core/pointcloud.py`. These are integer and sort
 decisions, so the kept points and their order equal the JAX package's
@@ -17,6 +17,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from svnicp_tpu_torch.core import geometry as geo
 
 _BITS = 10
 _MASK = (1 << _BITS) - 1
@@ -98,6 +100,23 @@ def crop(cloud: PaddedCloud, min_range: float, max_range: float) -> PaddedCloud:
     d2 = sq_norm3(cloud.points)
     ok = (d2 < max_range * max_range) & (d2 > min_range * min_range)
     return PaddedCloud(cloud.points, cloud.valid & ok)
+
+
+def deskew(points: torch.Tensor, valid: torch.Tensor, timestamps: torch.Tensor,
+           delta_xi: torch.Tensor) -> torch.Tensor:
+    """Motion-compensate a scan: p <- exp((tau - 0.5) delta_xi) p, with tau
+    the per-point time min-max normalised over the valid rows and delta_xi
+    [6] the last relative motion log(T_{k-2}^-1 T_{k-1}) (ref:
+    OdometryPipeline.cpp:414-445). A scan whose valid times are all equal,
+    and every invalid row, passes through unchanged."""
+    big = torch.finfo(timestamps.dtype).max
+    tmin = torch.where(valid, timestamps, torch.full_like(timestamps, big)).min()
+    tmax = torch.where(valid, timestamps, torch.full_like(timestamps, -big)).max()
+    span = tmax - tmin
+    tau = (timestamps - tmin) / torch.where(span > 0, span, torch.ones_like(span))
+    r, t = geo.se3_exp((tau - 0.5)[:, None] * delta_xi[None, :])
+    out = (r @ points[:, :, None])[:, :, 0] + t
+    return torch.where((span > 0) & valid[:, None], out, points)
 
 
 def stable_sort_by(keys: tuple[torch.Tensor, ...]) -> torch.Tensor:

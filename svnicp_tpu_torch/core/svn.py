@@ -54,7 +54,7 @@ class AlignResult(NamedTuple):
 def check_supported(cfg: SteinICPConfig) -> None:
     """The options this port implements so far; others raise."""
     unsupported = {
-        "method": cfg.method != "svn",
+        f"method={cfg.method}": cfg.method not in ("svn", "svgd"),
         "candidate_method": cfg.candidate_method != "bucketed",
         "match_count": cfg.match_count != 0,
         "svn_full_grad": cfg.svn_full_grad,
@@ -62,13 +62,15 @@ def check_supported(cfg: SteinICPConfig) -> None:
         # the XLA paths these select take the first index at ties; the
         # port's kernels and their plain versions average tied minima
         "use_pallas=false": not cfg.use_pallas,
-        "stein_kernel=false": not cfg.stein_kernel,
+        "stein_kernel=false": cfg.method == "svn" and not cfg.stein_kernel,
+        # JAX draws an SVGD minibatch with its PRNG, off the kernel route
+        "use_minibatch": cfg.method == "svgd" and cfg.use_minibatch,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"svnicp_tpu_torch does not port {bad} yet (this slice runs "
-            "method=svn, candidate_method=bucketed, use_pallas=true)")
+            f"svnicp_tpu_torch does not port {bad} yet (it runs method=svn or "
+            "svgd, candidate_method=bucketed, use_pallas=true)")
 
 
 def prior_inverse_variance(cfg: SteinICPConfig, dtype, device) -> torch.Tensor:

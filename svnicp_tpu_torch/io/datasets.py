@@ -1,8 +1,8 @@
 """Synthetic ground-truthed LiDAR sequences (port of
-`svnicp_tpu/io/datasets.py`: `SyntheticWorld.scan_at`,
+`svnicp_tpu/io/datasets.py`: `SyntheticWorld.scan_at` and `scan_sweep`,
 `synthetic_trajectory` and `synthetic_imu`). The same numpy draws in the
 same order, so a scan made here from a seed is byte-equal to the JAX
-package's."""
+package's (a sweep equal to float32 rounding)."""
 
 from __future__ import annotations
 
@@ -66,6 +66,46 @@ class SyntheticWorld:
                                              replace=False)]
         local = (world_pts - pose_t[None]) @ pose_r  # R^T (p - t)
         return (local + rng.normal(scale=noise, size=local.shape)).astype(np.float32)
+
+    def scan_sweep(self, rng, pose0_r, pose0_t, pose1_r, pose1_t,
+                   n_points: int = 8000, max_range: float = 45.0,
+                   noise: float = 0.02):
+        """Motion-distorted scan: each point is observed from the pose
+        screw-interpolated between pose0 (sweep start, tau=0) and pose1
+        (sweep end, tau=1) and expressed in its own observation frame, the
+        distortion deskew inverts -> (points [N,3] f32, tau [N] f32,
+        (mid_r, mid_t)), mid being the tau=0.5 pose the deskewed cloud lives
+        in. The interpolation runs in float32 as the JAX package's does, so
+        the two agree to rounding, not to the byte."""
+        import torch
+
+        from svnicp_tpu_torch.core import geometry as geo
+
+        world_pts = self.sample_surface_points(rng, n_points * 3)
+        mid_t_rough = 0.5 * (pose0_t + pose1_t)
+        d = np.linalg.norm(world_pts - mid_t_rough[None], axis=1)
+        world_pts = world_pts[(d < max_range) & (d > 1.0)]
+        if len(world_pts) > n_points:
+            world_pts = world_pts[rng.choice(len(world_pts), n_points,
+                                             replace=False)]
+        tau = rng.uniform(0.0, 1.0, len(world_pts)).astype(np.float32)
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32)
+
+        rd, td = geo.transform_compose(
+            *geo.transform_inverse(f32(pose0_r), f32(pose0_t)),
+            f32(pose1_r), f32(pose1_t))
+        xi = geo.se3_log(rd, td)
+        rs, ts = geo.se3_exp(torch.from_numpy(tau)[:, None] * xi[None])
+        r_obs = (f32(pose0_r) @ rs).numpy()
+        t_obs = ts.numpy() @ np.asarray(pose0_r).T + pose0_t[None]
+        local = np.einsum("nji,nj->ni", r_obs, world_pts - t_obs)  # R^T (p - t)
+        rm, tm = geo.se3_exp(0.5 * xi)
+        mid_r = pose0_r @ rm.numpy()
+        mid_t = pose0_r @ tm.numpy() + pose0_t
+        local += rng.normal(scale=noise, size=local.shape)
+        return local.astype(np.float32), tau, (mid_r, mid_t)
 
 
 def synthetic_trajectory(n_frames: int, dt: float = 0.1, speed: float = 1.5,

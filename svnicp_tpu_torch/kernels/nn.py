@@ -1,17 +1,18 @@
-"""The stage-1 candidate kernel (B1), the plane-moments kernel (B2) and the
-point-moments kernel (B4).
+"""The stage-1 candidate kernel (B1), the plane-moments kernel (B2), the
+point-moments kernel (B4) and the 1-NN match kernel (B5).
 
 Each function has a CUDA kernel (`csrc/stage1.cu`, `csrc/plane_moments.cu`,
-`csrc/point_moments.cu`) and a plain PyTorch version of the same math
-beside it. The wrapper runs the plain version only for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises (float32, contiguous, one
-device), and counts its launches in `<wrapper>.launches`. `moments` picks
-B2 or B4 from the type of the prep it is given.
+`csrc/point_moments.cu`, `csrc/nn_match.cu`) and a plain PyTorch version of
+the same math beside it. The wrapper runs the plain version only for
+tensors on the CPU; for CUDA tensors it launches the kernel or raises
+(float32, contiguous, one device), and counts its launches in
+`<wrapper>.launches`. `moments` picks B2 or B4 from the type of the prep it
+is given; B5 (the SVGD loop's match) reads B4's prep.
 
-The kernels average the coordinates (B1, B4) or n.q values (B2) of tied
+The kernels average the coordinates (B1, B4, B5) or n.q values (B2) of tied
 minima, as the Pallas kernels they replace do
 (`svnicp_tpu/kernels/nn_pallas.py`: `bucketed_candidates`,
-`fused_moments_plane_kb`, `fused_moments_kb`).
+`fused_moments_plane_kb`, `fused_moments_kb`, `fused_nn_match`).
 """
 
 from __future__ import annotations
@@ -256,17 +257,13 @@ def point_moments_plain(params: torch.Tensor, prep: PointPrep,
                         max_dist: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-particle point-to-point Gauss-Newton system from the candidate
     sets: params [P,12] = [vec(R_total), t_total] -> (H [P,6,6], b [P,6]).
-    The matched point is the mean of the tied minima; a pair outside the
-    gate (squared distance against the unsquared max_dist, or no valid
-    candidate) keeps weight 1 with a zero residual and a zero source point,
-    so it adds only to H's sw I block; padded points add nothing."""
-    p = params.shape[0]
-    params13 = torch.cat([params, params.new_ones((p, 1))], dim=-1)
-    score = torch.einsum("pc,ckb->pkb", params13, prep.feat13)
-    best = score.amin(1)
-    hit = (score == best[:, None, :]).to(params.dtype)
-    inv = 1.0 / hit.sum(1).clamp_min(1.0)
-    matched = [(hit * prep.cand_t[c][None]).sum(1) * inv for c in range(3)]
+    The matched point is the mean of the tied minima (`nn_match_plain`); a
+    pair outside the gate (squared distance against the unsquared max_dist,
+    or no valid candidate) keeps weight 1 with a zero residual and a zero
+    source point, so it adds only to H's sw I block; padded points add
+    nothing."""
+    q, best = nn_match_plain(params, prep)
+    matched = [q[..., c] for c in range(3)]
 
     s = [prep.src_t[i][None, :] for i in range(3)]
     pc = [params[:, i][:, None] for i in range(12)]
@@ -311,6 +308,51 @@ def point_moments(params: torch.Tensor, prep: PointPrep, max_dist: float
 
 
 point_moments.launches = 0
+
+
+# ------------------------------------------------------------ B5 1-NN match
+
+def nn_match_plain(params: torch.Tensor, prep: PointPrep
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per (particle, point) the candidate minimising
+    score = params13 . feat13 = |c|^2 - 2 <T_p s_b, c>, tied minima averaged:
+    params [P,12] = [vec(R_total), t_total] -> (matched [P,B,3], best [P,B]).
+    The caller adds |T_p s_b|^2 to `best` for the squared distance. A point
+    with no valid candidate has best = +inf and averages all its slots."""
+    p = params.shape[0]
+    params13 = torch.cat([params, params.new_ones((p, 1))], dim=-1)
+    score = torch.einsum("pc,ckb->pkb", params13, prep.feat13)
+    best = score.amin(1)
+    hit = (score == best[:, None, :]).to(params.dtype)
+    inv = 1.0 / hit.sum(1).clamp_min(1.0)
+    matched = [(hit * prep.cand_t[c][None]).sum(1) * inv for c in range(3)]
+    return torch.stack(matched, dim=-1), best
+
+
+def nn_match(params: torch.Tensor, prep: PointPrep
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """matched [P,B,3], best score [P,B] of every particle's 1-NN among the
+    candidate sets (kernel B5 on the card, the plain version on the CPU).
+    On the card `matched` is a view of a [3,P,B] buffer."""
+    if params.device.type == "cpu":
+        return nn_match_plain(params, prep)
+    _build.require_cuda_f32("nn_match", params, prep.feat13, prep.cand_t)
+    p = params.shape[0]
+    _, k, b = prep.feat13.shape
+    if (params.shape != (p, 12) or prep.feat13.shape[0] != 13
+            or prep.cand_t.shape != (3, k, b)):
+        raise ValueError("nn_match: shapes do not match [P,12], [13,K,B], [3,K,B]")
+    matched = torch.empty((3, p, b), dtype=torch.float32, device=params.device)
+    best = torch.empty((p, b), dtype=torch.float32, device=params.device)
+    err = _build.library("nn_match.cu").svn_nn_match(
+        _build.ptr(params), _build.ptr(prep.feat13), _build.ptr(prep.cand_t),
+        p, k, b, _build.ptr(matched), _build.ptr(best), _build.stream_of(params))
+    _build.check(err, "nn_match kernel")
+    nn_match.launches += 1
+    return matched.permute(1, 2, 0), best
+
+
+nn_match.launches = 0
 
 
 # ------------------------------------------------------------ either residual

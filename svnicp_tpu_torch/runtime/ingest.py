@@ -1,12 +1,13 @@
 """Host-side ingest and staging for LIOPipeline.
 
 Port of `svnicp_tpu/runtime/ingest.py`: the IMU window bookkeeping, the
-raw-scan staging (`_pack_frame`), the host-preprocessed staging (crop +
-stage-A downsample in native code, `_stage_scan_pre_untimed`), and the
-stage-ahead pair that runs frame k's staging on one worker thread while
-frame k-1 is dispatched (the native calls release the GIL). Every staging
-route packs the frame's IMU window on the calling thread when the frame is
-staged, as the JAX package does, and hands it to the step with the scan.
+raw-scan staging (`_pack_frame`, with per-point sweep times), the
+host-preprocessed staging (crop + stage-A downsample in native code,
+`_stage_scan_pre_untimed`), and the stage-ahead pair that runs frame k's
+staging on one worker thread while frame k-1 is dispatched (the native
+calls release the GIL). Every staging route packs the frame's IMU window on
+the calling thread when the frame is staged, as the JAX package does, and
+hands it to the step with the scan.
 The dispatch half stays in `runtime/pipeline.py`.
 """
 
@@ -92,17 +93,27 @@ class IngestDriver:
             return points
         return np.asarray(points, np.float32) @ r_ext.T + t_ext
 
-    def _pack_frame(self, t: float, points: np.ndarray):
+    def _pack_frame(self, t: float, points: np.ndarray, timestamps=None):
         """Raw staging (bootstrap frame, and every frame without
         host_downsample): native crop + pad into raw_capacity rows ->
-        (scan [cap,3], n_points, ImuWindow)."""
+        (scan [cap,3], n_points, ImuWindow). With per-point timestamps the
+        first raw_capacity rows are padded uncropped, in their order, with
+        the time as a 4th column (scan [cap,4]): the crop runs on the device
+        after deskew, as in the JAX package."""
         cap = self.cfg.preprocess.raw_capacity
         pp = self.cfg.preprocess
         with self.timer.span("preprocess"):
-            pts, _, n = native.stage_scan(self._apply_extrinsic(points),
-                                          pp.min_range, pp.max_range, cap)
-        return (pts.astype(self.cfg.np_dtype, copy=False), min(int(n), cap),
-                self._pack_imu(t))
+            points = self._apply_extrinsic(points)
+            if timestamps is None:
+                rows, _, n = native.stage_scan(points, pp.min_range,
+                                               pp.max_range, cap)
+                rows, n = rows.astype(self.cfg.np_dtype, copy=False), min(int(n), cap)
+            else:
+                n = min(len(points), cap)
+                rows = np.zeros((cap, 4), self.cfg.np_dtype)
+                rows[:n, :3] = points[:n]
+                rows[:n, 3] = np.asarray(timestamps[:n])
+        return rows, n, self._pack_imu(t)
 
     def _stage_scan_pre_untimed(self, points: np.ndarray):
         """Native crop + the stage-A (0.5 voxel) downsample -> (to_map rows

@@ -4,13 +4,14 @@ Port of `svnicp_tpu/runtime/pipeline.py` for both estimators: the
 constant-velocity ICP estimator and the error-state Kalman filter. A frame:
 in KF mode propagate the ESKF over the frame's IMU window; derive the
 stage-B source cloud on the device (`pointcloud.downsample_uniform` of the
-host's stage-A cloud, or both stages from the raw scan); predict the pose
-(constant velocity, or the ESKF's nav pose); draw a fresh particle prior;
-cut the local map (`voxmap.query_radius`); register (`svn.register`:
-stage-1 kernel, the align loop of moments and Stein-update kernels);
-contain failures; push the variance rings; compose the pose (ICP) or fuse
-the ensemble mean and covariance into the ESKF (KF); insert the scan into
-the map.
+host's stage-A cloud, or deskew, crop and both stages from the raw scan);
+predict the pose (constant velocity, or the ESKF's nav pose); draw a fresh
+particle prior; cut the local map (`voxmap.query_radius`); register
+(`svn.register`: stage-1 kernel, the align loop of moments and
+Stein-update kernels; or `svgd.register`: stage-1 kernel, the SVGD loop
+of 1-NN match kernels); contain failures; push the variance rings; compose
+the pose (ICP) or fuse the ensemble mean and covariance into the ESKF (KF);
+insert the scan into the map.
 
 The state is a NamedTuple of tensors plus a few host values (frame index,
 ring fill count, the particle generator); steps return a new state and
@@ -33,7 +34,7 @@ from svnicp_tpu_torch.core import eskf as eskf_mod
 from svnicp_tpu_torch.core import geometry as geo
 from svnicp_tpu_torch.core import imu as imu_mod
 from svnicp_tpu_torch.core import pointcloud as pc
-from svnicp_tpu_torch.core import smoother, svn, voxmap
+from svnicp_tpu_torch.core import smoother, svgd, svn, voxmap
 from svnicp_tpu_torch.device import resolve_device
 from svnicp_tpu_torch.runtime.ingest import ImuWindow, IngestDriver
 from svnicp_tpu_torch.runtime.profiling import StageTimer
@@ -87,7 +88,9 @@ def check_supported(cfg: PipelineConfig) -> None:
     """The pipeline options this port implements so far; others raise."""
     pp = cfg.preprocess
     unsupported = {
-        "preprocess.deskew": pp.deskew,
+        # the host route's timestamp channel (native stage_scan_ts and
+        # downsample_one_stage_ts) is not ported; deskew runs on the raw route
+        "preprocess.deskew with host_downsample": pp.deskew and pp.host_downsample,
         "preprocess.use_segmentation": pp.use_segmentation,
         "preprocess.feature_select": pp.feature_select,
         "preprocess.quantize_upload": pp.quantize_upload,
@@ -160,10 +163,21 @@ def _predict_pose(cfg: PipelineConfig, state: OdometryState, time: torch.Tensor)
     return geo.transform_compose(state.pose_r, state.pose_t, ri, ti)
 
 
-def _preprocess(cfg: PipelineConfig, points, valid):
-    """Crop + two-stage downsample on the device (ref:
-    OdometryPipeline.cpp:549-560) -> (cropped, to_map, source)."""
+def _preprocess(cfg: PipelineConfig, state: OdometryState, points, valid,
+                timestamps=None):
+    """Deskew (with per-point times and preprocess.deskew) + crop +
+    two-stage downsample on the device (ref: OdometryPipeline.cpp:549-560)
+    -> (cropped, to_map, source). Deskew undoes the last relative motion
+    log(T_{k-2}^-1 T_{k-1}), zero before frame 2 (ref: :425-432)."""
     pp = cfg.preprocess
+    if pp.deskew and timestamps is not None:
+        if state.frame_idx >= 2:
+            delta_xi = geo.se3_log(*geo.transform_compose(
+                *geo.transform_inverse(state.prev_r, state.prev_t),
+                state.pose_r, state.pose_t))
+        else:
+            delta_xi = points.new_zeros(6)
+        points = pc.deskew(points, valid, timestamps, delta_xi)
     cropped = pc.crop(pc.PaddedCloud(points, valid), pp.min_range, pp.max_range)
     to_map = pc.downsample_uniform(cropped, 0.5 * pp.voxel_size,
                                    cfg.icp.source_capacity * 2)
@@ -297,21 +311,24 @@ def odometry_step(cfg: PipelineConfig, state: OdometryState, to_map, source,
     target, overflow = voxmap.query_radius(
         state.vmap, guess_t, cfg.preprocess.max_range + 10.0,
         icp.target_capacity)
-    result = svn.register(icp, source.points, source.valid, target.points,
-                          target.valid, guess_r, guess_t, init_particles)
+    register = svgd.register if icp.method == "svgd" else svn.register
+    result = register(icp, source.points, source.valid, target.points,
+                      target.valid, guess_r, guess_t, init_particles)
 
     raw_var = result.var
     scaled_var = raw_var * torch.tensor(cfg.lio.icp_cov_scales, dtype=dtype,
                                         device=device)
     # failure containment (ref skips the frame, :599-601): a non-finite
-    # result, a degenerate correspondence set (grad_norm stays +inf), or a
-    # final iteration still at the trust-region cap (every particle clipped:
-    # dragged, not converging) falls back to the prediction and leaves the
-    # map and the variance rings untouched
+    # result, a degenerate correspondence set (grad_norm stays +inf), or,
+    # for SVN, a final iteration still at the trust-region cap (every
+    # particle clipped: dragged, not converging) falls back to the
+    # prediction and leaves the map and the variance rings untouched.
+    # SVGD's grad_norm is an unclipped optimizer step with no such cap.
     align_ok = bool(torch.isfinite(result.mean).all()
                     & torch.isfinite(result.var).all()
-                    & torch.isfinite(result.grad_norm)
-                    & (result.grad_norm < 0.999 * icp.max_dist))
+                    & torch.isfinite(result.grad_norm))
+    if icp.method == "svn":
+        align_ok = align_ok and bool(result.grad_norm < 0.999 * icp.max_dist)
     var_mean = smoother.mean_filtered(state.rings)
     rings = (smoother.push(state.rings, raw_var, scaled_var) if align_ok
              else state.rings)
@@ -323,6 +340,8 @@ def odometry_step(cfg: PipelineConfig, state: OdometryState, to_map, source,
         var_rw = eskf_mod.random_walk_variance(ekf)
     else:
         ekf = state.eskf
+        # for SVGD, mean[3:] are ZYX Euler angles composed as an axis-angle
+        # log: the reference's own conflation, kept as the JAX package does
         safe_mean = result.mean if align_ok else torch.zeros_like(result.mean)
         pose_r, pose_t = geo.transform_compose(
             guess_r, guess_t, geo.so3_exp(safe_mean[3:]), safe_mean[:3])
@@ -375,10 +394,12 @@ def odometry_step_pre(cfg: PipelineConfig, state: OdometryState, ds_buf,
 
 def odometry_step_raw(cfg: PipelineConfig, state: OdometryState, points,
                       valid, time, init_particles=None,
-                      skip_insert: bool = False, imu: ImuWindow | None = None):
-    """One frame from the raw (cropped, padded) scan: preprocess on the
-    device, then step."""
-    _, to_map, source = _preprocess(cfg, points, valid)
+                      skip_insert: bool = False, imu: ImuWindow | None = None,
+                      timestamps=None):
+    """One frame from the raw padded scan (cropped on the host, or with
+    per-point `timestamps` uncropped): preprocess on the device, then
+    step."""
+    _, to_map, source = _preprocess(cfg, state, points, valid, timestamps)
     return odometry_step(cfg, state, to_map, source, time, init_particles,
                          skip_insert, imu)
 
@@ -420,21 +441,30 @@ class LIOPipeline(IngestDriver):
         return n > 1 and frame_idx % n != 0
 
     def _upload(self, rows: np.ndarray, n: int):
-        pts = torch.from_numpy(rows).to(self.device)
-        return pts, torch.arange(pts.shape[0], device=self.device) < n
+        """Packed rows -> (points [cap,3], valid [cap], timestamps [cap] or
+        None) on the device."""
+        buf = torch.from_numpy(rows).to(self.device)
+        ts = buf[:, 3] if buf.shape[1] == 4 else None
+        return (buf[:, :3], torch.arange(buf.shape[0], device=self.device) < n,
+                ts)
 
-    def feed_scan(self, t: float, points: np.ndarray, init_particles=None
-                  ) -> FrameOutput | None:
-        """Process one LiDAR scan [N,3]; returns its FrameOutput, or None when
-        the frame-gap gate drops it or stage-ahead holds it back a frame."""
+    def feed_scan(self, t: float, points: np.ndarray, timestamps=None,
+                  init_particles=None) -> FrameOutput | None:
+        """Process one LiDAR scan [N,3], with optional per-point times [N]
+        (any scale: deskew normalises them per scan); returns its
+        FrameOutput, or None when the frame-gap gate drops it or stage-ahead
+        holds it back a frame. Timestamps take the raw route; without
+        preprocess.deskew they are carried and ignored, as in the JAX
+        package."""
         if (self._last_frame_time is not None
                 and t - self._last_frame_time < self.cfg.lio.frame_gap_seconds):
             return None
-        host_ds = self.cfg.preprocess.host_downsample and self._frames > 0
+        host_ds = (self.cfg.preprocess.host_downsample and self._frames > 0
+                   and timestamps is None)
         if self._frames == 0:
-            rows, n, imu = self._pack_frame(t, points)
+            rows, n, imu = self._pack_frame(t, points, timestamps)
             with self.timer.span("dispatch"):
-                pts, valid = self._upload(rows, n)
+                pts, valid, _ = self._upload(rows, n)
                 self.state, out = bootstrap(self.cfg, self.state, pts, valid,
                                             self._time(t), imu)
             self._record_frame(t, out)
@@ -448,12 +478,12 @@ class LIOPipeline(IngestDriver):
             out = self._dispatch_pre(t, ds_buf, n_map, imu, self._frames,
                                      init_particles)
         else:
-            rows, n, imu = self._pack_frame(t, points)
+            rows, n, imu = self._pack_frame(t, points, timestamps)
             with self.timer.span("dispatch"):
-                pts, valid = self._upload(rows, n)
+                pts, valid, ts = self._upload(rows, n)
                 self.state, out = odometry_step_raw(
                     self.cfg, self.state, pts, valid, self._time(t),
-                    init_particles, self._skip_insert(self._frames), imu)
+                    init_particles, self._skip_insert(self._frames), imu, ts)
         self._record_frame(t, out)
         return out
 

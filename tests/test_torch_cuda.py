@@ -118,6 +118,46 @@ def test_point_moments_kernel(dev, p, b, k, ties):
     assert torch.equal(h_k, h_k2) and torch.equal(b_k, b_k2)
 
 
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("p,b,k", [(1, 7, 3), (10, 300, 12), (30, 1000, 100)])
+def test_nn_match_kernel(dev, p, b, k, ties):
+    # the operands of the point-moments test above: candidate j sits
+    # 0.1 (j+1) m from its point, 10% of the slots invalid and a point with
+    # none valid, K padded to a multiple of 8. With `ties`, candidate 1
+    # takes candidate 0's score features but another position, an exact tie
+    # whose points must be averaged.
+    g = torch.Generator().manual_seed(p * b + k + 1)
+    src = torch.randn((b, 3), generator=g) * 5
+    dirs = torch.nn.functional.normalize(torch.randn((b, k, 3), generator=g), dim=-1)
+    cand = src[:, None, :] + dirs * (0.1 + 0.1 * torch.arange(k))[None, :, None]
+    cvalid = torch.rand((b, k), generator=g) > 0.1
+    cvalid[b // 2] = False
+    valid = torch.rand(b, generator=g) > 0.1
+    xi = torch.randn((p, 6), generator=g) * 1e-4
+    params = torch.cat([geo.so3_exp(xi[:, 3:]).reshape(p, 9), xi[:, :3]], -1)
+    src, cand, cvalid, valid, params = (
+        x.to(dev) for x in (src, cand, cvalid, valid, params))
+    cand, cvalid = nn.pad_candidates(cand, cvalid, multiple=8)
+    feat, bias = svn.correspondence_features(src, cand, cvalid)
+    prep = nn.prepare_moments_point(feat, bias, cand, src, valid)
+    if ties:
+        prep.feat13[:, 1] = prep.feat13[:, 0]
+        prep.cand_t[:, 1] = prep.cand_t[:, 0] + 0.05
+    before = nn.nn_match.launches
+    m_k, b_k = nn.nn_match(params.contiguous(), prep)
+    torch.cuda.synchronize()
+    assert nn.nn_match.launches == before + 1
+    assert m_k.shape == (p, b, 3) and b_k.shape == (p, b)
+    m_p, b_p = nn.nn_match_plain(params, prep)
+    fin = torch.isfinite(b_p)
+    assert torch.equal(torch.isfinite(b_k), fin) and not fin[:, b // 2].any()
+    # candidates lie 0.1 m apart in distance: no near-ties, the same picks
+    torch.testing.assert_close(m_k[fin], m_p[fin], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(b_k[fin], b_p[fin], rtol=1e-4, atol=1e-3)
+    m_k2, b_k2 = nn.nn_match(params.contiguous(), prep)
+    assert torch.equal(m_k, m_k2) and torch.equal(b_k, b_k2)
+
+
 @pytest.mark.parametrize("use_prior", [False, True])
 @pytest.mark.parametrize("p", [2, 10, 64, 200])
 def test_stein_kernel(dev, p, use_prior):
@@ -144,6 +184,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         nn.bucketed_candidates(x, x, m, m, 2)
     with pytest.raises(ValueError):
         nn.bucketed_candidates(x.float().T.contiguous().T, x.float(), m, m, 2)
+    prep = nn.PointPrep(torch.zeros((13, 8, 4), device=dev),
+                        torch.zeros((3, 8, 4), device=dev),
+                        torch.zeros((3, 4), device=dev), torch.zeros(4, device=dev))
+    with pytest.raises(TypeError):
+        nn.nn_match(torch.zeros((2, 12), dtype=torch.float64, device=dev), prep)
+    with pytest.raises(ValueError):
+        nn.nn_match(torch.zeros((2, 13), device=dev), prep)
 
 
 def test_kernel_medians_are_exact(dev):

@@ -47,11 +47,19 @@ def test_port_imports_nothing_of_jax():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("name", ["tpu_plane", "geode_alpha", "subt_mrs"])
+def _svgd_kernel_route(cfg):
+    """generic_svgd.yaml on the JAX package's kernel route for SVGD."""
+    return dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, use_pallas=True))
+
+
+@pytest.mark.parametrize("name", ["tpu_plane", "geode_alpha", "subt_mrs",
+                                  "generic_svgd"])
 def test_pipeline_defaults_to_the_card(name):
     """The ported configurations construct on the CPU when asked, and the
     default device is the card."""
     cfg = cfg_mod.from_yaml(str(ROOT / "configs" / f"{name}.yaml"))
+    if name == "generic_svgd":
+        cfg = _svgd_kernel_route(cfg)
     pl.LIOPipeline(cfg, device="cpu").close()
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -79,6 +87,10 @@ def test_wrappers_refuse_non_cpu_tensors_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA"):
         nn.point_moments(torch.zeros((2, 12), device="meta"), prep, 3.0)
     assert nn.point_moments.launches == before
+    before = nn.nn_match.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        nn.nn_match(torch.zeros((2, 12), device="meta"), prep)
+    assert nn.nn_match.launches == before
 
 
 def test_kernel_build_needs_nvcc():
@@ -88,15 +100,35 @@ def test_kernel_build_needs_nvcc():
         _build.build_all()
 
 
-def test_unported_options_raise():
-    """generic_svgd.yaml runs the SVGD method with deskew, neither ported
-    yet: refused, naming both."""
+def _svgd_variant(case):
     cfg = cfg_mod.from_yaml(str(ROOT / "configs" / "generic_svgd.yaml"))
-    with pytest.raises(NotImplementedError, match="deskew"):
-        pl.LIOPipeline(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="method"):
-        pl.check_supported(dataclasses.replace(
-            cfg, preprocess=dataclasses.replace(cfg.preprocess, deskew=False)))
+    if case == "as_written":
+        return cfg
+    cfg = _svgd_kernel_route(cfg)
+    if case == "deskew_with_host_downsample":
+        return dataclasses.replace(cfg, preprocess=dataclasses.replace(
+            cfg.preprocess, host_downsample=True))
+    if case == "use_minibatch":
+        return dataclasses.replace(cfg, icp=dataclasses.replace(
+            cfg.icp, use_minibatch=True, batch_size=1024))
+    return dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, method="svd"))
+
+
+@pytest.mark.parametrize("case,name", [
+    # the file leaves SVGD on the XLA route (first index at ties)
+    ("as_written", "use_pallas"),
+    # deskew's timestamp channel on the host route is not ported
+    ("deskew_with_host_downsample", "deskew with host_downsample"),
+    # JAX draws the minibatch with its PRNG, off the kernel route
+    ("use_minibatch", "use_minibatch"),
+    ("svd", "method=svd")])
+def test_unported_options_raise(case, name):
+    """What the SVGD path does not port is refused by name; the path itself
+    (generic_svgd.yaml with use_pallas=True) constructs on the CPU."""
+    pl.LIOPipeline(_svgd_kernel_route(_svgd_variant("as_written")),
+                   device="cpu").close()
+    with pytest.raises(NotImplementedError, match=name):
+        pl.LIOPipeline(_svgd_variant(case), device="cpu")
 
 
 @pytest.mark.parametrize("option", ["use_pallas", "stein_kernel"])

@@ -2,7 +2,8 @@
 the oracle the CUDA kernels are held to on the card) against the Pallas
 kernels they replace, run in interpret mode on the CPU:
 B1 nn_pallas.bucketed_candidates, B2 nn_pallas.fused_moments_plane_kb,
-B3 stein_pallas.stein_update, B4 nn_pallas.fused_moments_kb."""
+B3 stein_pallas.stein_update, B4 nn_pallas.fused_moments_kb,
+B5 nn_pallas.fused_nn_match."""
 
 import dataclasses
 
@@ -17,6 +18,7 @@ from svnicp_tpu.core import svn as jsvn
 from svnicp_tpu.kernels import knn as jknn
 from svnicp_tpu.kernels import nn_pallas, stein_pallas
 from svnicp_tpu_torch.config import SteinICPConfig
+from svnicp_tpu_torch.core import svgd as tsvgd
 from svnicp_tpu_torch.core import svn as tsvn
 from svnicp_tpu_torch.kernels import knn as tknn
 from svnicp_tpu_torch.kernels import nn as tnn
@@ -302,6 +304,82 @@ def test_moments_runs_the_residual_of_its_prep(rng, residual, prep_type, plain,
     h, b = tnn.moments(torch.from_numpy(params), prep, 2.8)
     h_p, b_p = getattr(tnn, plain)(torch.from_numpy(params), prep, 2.8)
     assert torch.equal(h, h_p) and torch.equal(b, b_p)
+
+
+def _nn_match_both(params, source, src_valid, cand_score, cand, cvalid):
+    """B5 through the JAX package's kernel route (P and B as given, K padded
+    to 128 as its align pads them) and the port's wrapper (K padded to a
+    multiple of 8, the SVGD loop's prep). Scores come from `cand_score`,
+    the averaged coordinates from `cand` (equal unless a test builds ties)
+    -> ((matched, best) of JAX, of the port)."""
+    p, b = params.shape[0], source.shape[0]
+    cs_p, cv_p = nn_pallas.pad_candidates(jnp.asarray(cand_score),
+                                          jnp.asarray(cvalid), multiple=128)
+    c_p, _ = nn_pallas.pad_candidates(jnp.asarray(cand), jnp.asarray(cvalid),
+                                      multiple=128)
+    feat, bias = jsvn.correspondence_features(jnp.asarray(source), cs_p, cv_p)
+    m_j, b_j = nn_pallas.fused_nn_match(jnp.asarray(params), feat, bias, c_p,
+                                        particle_tile=p, point_tile=b,
+                                        interpret=True)
+    prep = tsvgd.prepare(torch.from_numpy(source), torch.from_numpy(src_valid),
+                         torch.from_numpy(cand_score), torch.from_numpy(cvalid))
+    c_t, _ = tnn.pad_candidates(torch.from_numpy(cand), torch.from_numpy(cvalid))
+    prep = prep._replace(cand_t=c_t.permute(2, 1, 0).contiguous())
+    assert prep.feat13.shape[1] % 8 == 0
+    m_t, b_t = tnn.nn_match(torch.from_numpy(params), prep)
+    return (np.asarray(m_j), np.asarray(b_j)), (m_t.numpy(), b_t.numpy())
+
+
+def _assert_same_match(jax_out, port_out):
+    """Pairs with a finite best score agree to 1e-4. Where every slot of a
+    point is invalid (best +inf) both average all their slots, 128 padded
+    ones in JAX and 8k in the port, so the matched point depends on the
+    padding; the SVGD gate drops those pairs, and only the +inf is compared."""
+    (m_j, b_j), (m_t, b_t) = jax_out, port_out
+    fin = np.isfinite(b_j)
+    np.testing.assert_array_equal(np.isfinite(b_t), fin)
+    assert fin.any()
+    np.testing.assert_allclose(b_t[fin], b_j[fin], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(m_t[fin], m_j[fin], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("p,b,k", [(8, 256, 16), (10, 256, 20)])
+def test_nn_match_plain_matches_pallas(rng, p, b, k):
+    source, src_valid, cand, cvalid, params = _moments_problem(rng, p, b, k)
+    cvalid[7] = False                  # a point with no valid candidate
+    jax_out, port_out = _nn_match_both(params, source, src_valid, cand, cand,
+                                       cvalid)
+    assert not np.isfinite(jax_out[1][:, 7]).any()
+    _assert_same_match(jax_out, port_out)
+
+
+def test_nn_match_ties_are_averaged(rng):
+    """Ragged P=10, B=100, K=12: candidate 1 scores exactly as candidate 0
+    but sits 0.2 m away; the Pallas kernel and the plain version both
+    return the mean of the two wherever they win (a first-index rule would
+    return candidate 0)."""
+    p, b, k = 10, 100, 12
+    source = (rng.normal(size=(b, 3)) * 5).astype(np.float32)
+    dirs = rng.normal(size=(b, k, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    cand = (source[:, None, :] + dirs * (0.3 + 0.1 * np.arange(k))[None, :, None]
+            ).astype(np.float32)
+    cand[:, 1] = cand[:, 0]
+    cvalid = rng.random((b, k)) > 0.1
+    cvalid[:, :2] = True
+    cvalid[3] = False
+    src_valid = rng.random(b) > 0.1
+    xi = (rng.normal(size=(p, 6)) * 1e-3).astype(np.float32)
+    params = np.concatenate([np.asarray(jgeo.bso3_exp(jnp.asarray(xi[:, 3:]))
+                                        ).reshape(p, 9), xi[:, :3]], axis=-1)
+    moved = cand.copy()
+    moved[:, 1] += 0.2
+    jax_out, port_out = _nn_match_both(params, source, src_valid, cand, moved,
+                                       cvalid)
+    _assert_same_match(jax_out, port_out)
+    fin = np.isfinite(port_out[1])
+    mean = np.broadcast_to(cand[None, :, 0] + 0.1, port_out[0].shape)
+    np.testing.assert_allclose(port_out[0][fin], mean[fin], atol=1e-5)
 
 
 def _stein_problem(rng, p):
