@@ -6,12 +6,14 @@
 Phases, each printing its own line(s); any failure raises and exits non-zero:
 1. device: the card's name, `nvidia-smi` name and power limit, TF32 off;
 2. build: nvcc builds the five CUDA kernels (sm_90a) and g++ the host
-   staging library, from the sources in this checkout;
+   staging library, from the sources in this checkout; every kernel's
+   ptxas registers and spills are printed, and B2 and B3 must not spill;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    same inputs on the card, at the shapes of the three paths below and at
-   ragged shapes with exact ties, with the kernel's time, the plain
-   version's time and the bound (B1 at both k, B4 also at
-   configs/subt_mrs.yaml's shapes);
+   ragged shapes with exact ties (B3 also at P=300 and 512), repeats
+   bit-identical, with the kernel's time, the plain version's time and the
+   bound (B1 at both k, B3 at both P, B4 also at configs/subt_mrs.yaml's
+   shapes);
 4. main path: `LIOPipeline(configs/tpu_plane.yaml)` on 3 warm-up + 20 timed
    frames of the bench sequence (32,000-point scans of
    SyntheticWorld(extent=80, n_walls=24, n_boxes=16, seed=7)), with each
@@ -34,6 +36,9 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    frames aligned as in the JAX package's own run and ATE against the
    mid-sweep poses under the limit taken from that run (SVGD_ATE_LIMIT).
 Each path's launch counts are set to 0 just before it and read just after.
+Each path prints its iterations per frame beside EARLIER_ITERS (those of
+the first B2 and B3 kernels) and names the frames that moved; the SVGD
+path, which runs neither, must repeat its count and ATE exactly.
 With `--profile`, a torch.profiler trace of 5 more frames of each path
 (device-busy share, kernels by device time).
 The last lines are the kernel table as JSON (`launches` summed over the
@@ -72,6 +77,21 @@ GEODE_ATE_LIMIT = max(1.5 * GEODE_JAX_ATE, GEODE_JAX_ATE + 0.05)
 SVGD_JAX_ATE = 0.7128996366642155
 SVGD_ATE_LIMIT = max(1.5 * SVGD_JAX_ATE, SVGD_JAX_ATE + 0.05)
 SVGD_JAX_ALIGN_OK = [True] * 23
+# Iterations per frame of each path with the first B2 and B3 kernels (one
+# block per ensemble with a bisection median; 8 particles per block), on
+# the H100: a kernel that sums in another order may move a frame whose stop
+# statistic sits at its threshold, so moved frames are printed, not refused.
+# The SVGD path runs neither kernel and must repeat its count exactly.
+EARLIER_ITERS = {
+    "main": [0, 26, 51, 67, 100, 49, 100, 8, 34, 5, 39, 25, 17, 6, 21, 13, 4, 12,
+             11, 5, 13, 7, 18],
+    "geode": [0, 24, 23, 24, 15, 24, 18, 19, 19, 14, 19, 20, 17, 22, 22, 21, 17, 21,
+              14, 19, 20, 19, 18],
+    "svgd": [0] + [30] * 22,
+}
+SVGD_ATE = 0.6338   # the SVGD path's ATE [m] at 4 decimals, to repeat exactly
+# kernels whose ptxas report must show no spill
+NO_SPILL = ("stein.cu", "plane_moments.cu")
 
 
 def nvidia_smi_line() -> str:
@@ -508,6 +528,8 @@ def stein_inputs(p, dev, seed):
 
 
 def check_stein(name, hess, b, r, t, prior, rows):
+    """B3 against its plain version with and without the prior (rtol and
+    atol 2e-5); a repeat run must give the same bits."""
     import torch
 
     from svnicp_tpu_torch.kernels import stein
@@ -520,10 +542,56 @@ def check_stein(name, hess, b, r, t, prior, rows):
         for a, e in zip(out_k, out_p):
             torch.testing.assert_close(a, e, rtol=2e-5, atol=2e-5)
             worst = max(worst, (a - e).abs().max().item())
+        out_k2 = stein.stein_update(hess, b, r, t, pr, max_dist=3.0)
+        assert all(torch.equal(a, c) for a, c in zip(out_k, out_k2)), \
+            f"{name}: B3 is not deterministic"
     print(f"kernel B3 stein_update {name} (with and without prior): "
-          f"max|d| {worst:.3g} (rtol 2e-5, atol 2e-5)")
+          f"max|d| {worst:.3g} (rtol 2e-5, atol 2e-5); repeat run bit-identical")
     rows.append(worst)
     return worst
+
+
+def stein_bound(p: int) -> tuple[float, str]:
+    """What the Stein update needs, not the kernel's way of doing it: per
+    particle ~400 operations (prior, 6x6 Cholesky solve, so3 log/exp, clip,
+    update); per pair 18 for its squared distance, counted once, 3 for a
+    linear-time selection of the lower median, and 60 for the RBF kernel,
+    its gradient and the two kernel sums; the operands read and written
+    once."""
+    return bound_ms(400.0 * p + (18.0 + 3.0 + 60.0) * p * p,
+                    p * (36 + 6 + 9 + 3 + 9 + 3) * 4 + 8)
+
+
+def time_stein(hess, b, r, t) -> dict:
+    """B3's device time (profiler), wrapper time back to back, plain time
+    and bound on one ensemble, without the prior."""
+    from svnicp_tpu_torch.kernels import stein
+
+    def kernel():
+        return stein.stein_update(hess, b, r, t, None, max_dist=3.0)
+
+    b_ms, b_by = stein_bound(hess.shape[0])
+    return dict(ms=device_ms(kernel, 200, ["stein_kernel"]),
+                call_ms=cuda_time_ms(kernel, 200),
+                plain_ms=device_ms(lambda: stein.stein_update_plain(
+                    hess, b, r, t, None, max_dist=3.0), 20),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def check_ptxas(log_by_source: dict) -> None:
+    """Print every kernel's ptxas register and spill lines; the kernels of
+    NO_SPILL must report 0 bytes of spill stores and loads."""
+    import re
+
+    for src, log in sorted(log_by_source.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {src}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and src in NO_SPILL:
+                assert m.group(1) == m.group(2) == "0", f"{src} spills: {line}"
+    for src in NO_SPILL:
+        assert "spill stores" in log_by_source.get(src, ""), f"no ptxas report for {src}"
 
 
 def early_stop_cost(cfg, src, sv, tgt, tv, dev) -> float:
@@ -620,10 +688,12 @@ def run_path(cfg, frames):
     return pipe, dt, {key: _wrapper(key).launches for key in KERNELS}
 
 
-def report_path(name, pipe, dt, launches, rots, trans, smi, align_ok=None) -> float:
-    """Print a path's frames/s, iterations, align_ok, ATE and launches and
-    check what every path must show (every frame aligned, or those of
-    `align_ok`) -> ATE [m]."""
+def report_path(name, pipe, dt, launches, rots, trans, smi, earlier,
+                align_ok=None) -> float:
+    """Print a path's frames/s, iterations (beside `earlier`, the first
+    kernels' counts, naming the frames that moved), align_ok, ATE and
+    launches and check what every path must show (every frame aligned, or
+    those of `align_ok`) -> ATE [m]."""
     from svnicp_tpu_torch.io import metrics
 
     n = WARMUP + TIMED
@@ -637,6 +707,9 @@ def report_path(name, pipe, dt, launches, rots, trans, smi, align_ok=None) -> fl
     print(f"{name}: {TIMED / dt:.2f} frames/s over {TIMED} timed frames "
           f"(32,000-point scans) [{smi}]")
     print(f"iterations per frame: {iters}")
+    moved = [(i, a, b) for i, (a, b) in enumerate(zip(earlier, iters)) if a != b]
+    print(f"iterations: {sum(iters)} against {sum(earlier)} with the first B2/B3 "
+          f"kernels; frames moved (frame, before, now): {moved}")
     print(f"align_ok per frame: {[o.align_ok for o in outs]}")
     print(f"ATE {ate:.4f} m over {n} frames; launches {launches}; "
           f"stage times {pipe.timer.report()}")
@@ -719,7 +792,7 @@ def main() -> int:
     from svnicp_tpu_torch import config as cfg_mod
     from svnicp_tpu_torch import resolve_device
     from svnicp_tpu_torch.io import native
-    from svnicp_tpu_torch.kernels import _build, nn, stein
+    from svnicp_tpu_torch.kernels import _build, nn
 
     # ---- 1. device
     dev = resolve_device("cuda")
@@ -736,10 +809,7 @@ def main() -> int:
     native.library()
     print(f"build: {len(_build.CUDA_SOURCES)} CUDA kernels (nvcc sm_90a, in "
           f"parallel) + host staging (g++) in {time.perf_counter() - t0:.1f} s")
-    for src, log in sorted(_build.build_log.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}")
+    check_ptxas(_build.build_log)
 
     cfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "tpu_plane.yaml"))
     gcfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "geode_alpha.yaml"))
@@ -789,8 +859,9 @@ def main() -> int:
     check_moments(f"ragged P=10 B=300 K={prep_r.feat13.shape[1]} with ties",
                   params_r, prep_r, icp.max_dist, errs["B2"], ties=True)
     call = cuda_time_ms(lambda: nn.plane_moments(params, prep, icp.max_dist), 50)
+    # both launches: the moments and the pass that sums the tiles into H, b
     ms = device_ms(lambda: nn.plane_moments(params, prep, icp.max_dist), 50,
-                   ["plane_moments_kernel", "sum_tiles_kernel"])
+                   ["plane_moments_kernel", "plane_system_kernel"])
     plain = device_ms(lambda: nn.plane_moments_plain(params, prep, icp.max_dist), 10)
     # B2 reads a normal with each point and computes n.c once per slot
     b_ms, b_by = moments_bound(params, prep, k, point_floats=6, slot_ops=10.0,
@@ -844,29 +915,26 @@ def main() -> int:
     table["B5"] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
     del vsrc, vsv, vtgt, vtv, vparams, vprep
 
+    # B3 at the main path's P and the geode path's, and past the size whose
+    # distances stay in shared memory (P=300, 512)
+    gp = gicp.particle_count
     hess, bb, r, t, prior = stein_inputs(p, dev, seed=13)
+    ghess, gbb, gr, gt, gprior = stein_inputs(gp, dev, seed=14)
     check_stein(f"main P={p}", hess, bb, r, t, prior, errs["B3"])
-    check_stein("ragged P=10", *stein_inputs(10, dev, seed=14), errs["B3"])
-    call = cuda_time_ms(lambda: stein.stein_update(hess, bb, r, t, None, max_dist=3.0), 200)
-    ms = device_ms(lambda: stein.stein_update(hess, bb, r, t, None, max_dist=3.0), 200,
-                   ["stein_kernel"])
-    plain = device_ms(lambda: stein.stein_update_plain(hess, bb, r, t, None,
-                                                       max_dist=3.0), 20)
-    # what the function needs, not this kernel's way of doing it: per
-    # particle ~400 operations (prior, 6x6 Cholesky solve, so3 log/exp, clip,
-    # update); per pair 18 for its squared distance, counted once, 3 for a
-    # linear-time selection of the lower median, and 60 for the RBF kernel,
-    # its gradient and the two kernel sums
-    b_ms, b_by = bound_ms(400.0 * p + (18.0 + 3.0 + 60.0) * p * p,
-                          p * (36 + 6 + 9 + 3 + 9 + 3) * 4 + 8)
-    table["B3"] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
-    # that bound is far below one launch: the device time of a one-element
-    # fill is the least any kernel takes here
+    check_stein(f"geode P={gp}", ghess, gbb, gr, gt, gprior, errs["B3"])
+    for big in (300, 512):
+        check_stein(f"large P={big}", *stein_inputs(big, dev, seed=big), errs["B3"])
+    table["B3"] = time_stein(hess, bb, r, t)
+    table[f"B3 (geode P={gp})"] = time_stein(ghess, gbb, gr, gt)
+    # those bounds are far below one launch: the device time of a
+    # one-element fill is the least any kernel takes here
     one = torch.zeros(1, device=dev)
     floor = device_ms(lambda: one.fill_(1.0), 200)
     print(f"launch floor: a one-element fill takes {floor:.4f} ms on the device "
           f"({cuda_time_ms(lambda: one.fill_(1.0), 200):.4f} ms per call, back "
-          f"to back); B3's work bound is {b_ms:.6f} ms  [{smi}]")
+          f"to back); B3's work bound is {table['B3']['bound_ms']:.6f} ms at "
+          f"P={p} and {table[f'B3 (geode P={gp})']['bound_ms']:.6f} ms at "
+          f"P={gp}  [{smi}]")
     for name, row in table.items():
         print(f"time {name}: kernel {row['ms']:.4f} ms on the device "
               f"({row['call_ms']:.4f} ms per wrapper call, back to back)  plain "
@@ -877,7 +945,7 @@ def main() -> int:
     frames = [(times[i], scans[i], None, None) for i in range(n_frames)]
     pipe, dt, launches = run_path(cfg, frames)
     ate = report_path("main path (configs/tpu_plane.yaml)", pipe, dt, launches,
-                      rots, trans, smi)
+                      rots, trans, smi, EARLIER_ITERS["main"])
     iters = sum(o.icp_iterations for o in pipe.outputs)
     assert launches["B2"] == iters == launches["B3"], (launches, iters)
     assert launches["B4"] == launches["B5"] == 0, launches
@@ -891,7 +959,7 @@ def main() -> int:
     gframes = [(gtimes[i], gscans[i], gimu[i], None) for i in range(n_frames)]
     gpipe, gdt, glaunches = run_path(gcfg, gframes)
     gate = report_path("geode path (configs/geode_alpha.yaml)", gpipe, gdt,
-                       glaunches, grots, gtrans, smi)
+                       glaunches, grots, gtrans, smi, EARLIER_ITERS["geode"])
     giters = sum(o.icp_iterations for o in gpipe.outputs)
     gains = [float(o.kf_gain.abs().max()) for o in gpipe.outputs]
     print(f"geode path: max |Kalman gain| per frame {[f'{x:.3g}' for x in gains]}; "
@@ -908,7 +976,8 @@ def main() -> int:
     vframes = [(vtimes[i], vsweeps[i][0], None, vsweeps[i][1]) for i in range(n_frames)]
     vpipe, vdt, vlaunches = run_path(vcfg, vframes)
     vate = report_path("svgd path (configs/generic_svgd.yaml, use_pallas=True)",
-                       vpipe, vdt, vlaunches, vgt_r, vgt_t, smi, SVGD_JAX_ALIGN_OK)
+                       vpipe, vdt, vlaunches, vgt_r, vgt_t, smi, EARLIER_ITERS["svgd"],
+                       SVGD_JAX_ALIGN_OK)
     viters = sum(o.icp_iterations for o in vpipe.outputs)
     steps = [f"{float(o.icp_grad_norm):.3g}" for o in vpipe.outputs[1:]]
     print(f"svgd path: last mean particle step per frame {steps}; ATE against the "
@@ -917,6 +986,9 @@ def main() -> int:
     assert vlaunches["B5"] == viters > 0, (vlaunches, viters)
     assert vlaunches["B2"] == vlaunches["B3"] == vlaunches["B4"] == 0, vlaunches
     assert vate < SVGD_ATE_LIMIT, (vate, SVGD_ATE_LIMIT)
+    # B2 and B3 are off this path: it repeats the first kernels' run exactly
+    assert [o.icp_iterations for o in vpipe.outputs] == EARLIER_ITERS["svgd"]
+    assert round(vate, 4) == SVGD_ATE, vate
     if args.profile:
         profile_frames(vcfg, vframes, WARMUP, 5)
 

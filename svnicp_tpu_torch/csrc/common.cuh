@@ -22,7 +22,24 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ int warp_sum_int(int v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// Asynchronous copies global -> shared (sm_80+): `pred` false copies
+// nothing and zero-fills the destination (`src` must still be a valid
+// address). Commit a group, then wait until at most N groups are pending.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }

@@ -36,7 +36,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every exported entry (pointers and the stream as void*)
 SIGNATURES = {
     "stage1.cu": {"svn_stage1_candidates": [_P] * 4 + [_I] * 5 + [_P] * 3},
-    "plane_moments.cu": {"svn_plane_moments": [_P] * 6 + [_I] * 3 + [_F] + [_P] * 3},
+    "plane_moments.cu": {"svn_plane_moments": [_P] * 6 + [_I] * 3 + [_F] + [_P] * 4},
     "point_moments.cu": {"svn_point_moments": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 3},
     "stein.cu": {"svn_stein_update": [_P] * 5 + [_I, _F] + [_P] * 4},
     "nn_match.cu": {"svn_nn_match": [_P] * 3 + [_I] * 3 + [_P] * 3},
@@ -44,7 +44,9 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-build_log: dict[str, str] = {}   # source -> ptxas register/spill report
+# source -> nvcc's output with the ptxas register/spill report (kept beside
+# each library, so a later process that loads it reads the same report)
+build_log: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -93,10 +95,14 @@ def build_all() -> dict[str, ctypes.CDLL]:
             if proc.returncode != 0:
                 failed.append(f"{src}:\n{log}")
             else:
+                out.with_suffix(".log").write_text(log)
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("nvcc failed\n" + "\n".join(failed))
         for src in CUDA_SOURCES:
+            saved = _out_path(src).with_suffix(".log")
+            if src not in build_log and saved.exists():
+                build_log[src] = saved.read_text()
             lib = ctypes.CDLL(str(_out_path(src)))
             for name, argtypes in SIGNATURES[src].items():
                 getattr(lib, name).restype = ctypes.c_int

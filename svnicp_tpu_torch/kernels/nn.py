@@ -174,26 +174,20 @@ def plane_moments(params: torch.Tensor, prep: PlanePrep, max_dist: float
             or prep.nrm_t.shape != (3, b) or prep.vmask.shape != (b,)):
         raise ValueError("plane_moments: shapes do not match [P,12], [13,K,B], "
                          "[K,B], [3,B], [3,B], [B]")
-    m = _run_moments("plane_moments.cu", "svn_plane_moments", _N_MOMENTS,
-                     params, prep, k, b, max_dist)
+    # the kernel writes the system itself (no assemble_plane_system here)
+    partial = torch.empty((-(-b // 32), _N_MOMENTS, p), dtype=torch.float32,
+                          device=params.device)
+    h = torch.empty((p, 6, 6), dtype=torch.float32, device=params.device)
+    bvec = torch.empty((p, 6), dtype=torch.float32, device=params.device)
+    err = _build.library("plane_moments.cu").svn_plane_moments(
+        *(_build.ptr(t) for t in (params, *prep)), p, k, b, float(max_dist),
+        _build.ptr(partial), _build.ptr(h), _build.ptr(bvec), _build.stream_of(params))
+    _build.check(err, "plane_moments kernel")
     plane_moments.launches += 1
-    return assemble_plane_system(m.T)
+    return h, bvec
 
 
 plane_moments.launches = 0
-
-
-def _run_moments(src, entry, n_mom, params, prep, k, b, max_dist):
-    """Launch a moments kernel on `params`' stream -> moments [n_mom, P]."""
-    p = params.shape[0]
-    partial = torch.empty((-(-b // 128), n_mom, p), dtype=torch.float32,
-                          device=params.device)
-    m = torch.empty((n_mom, p), dtype=torch.float32, device=params.device)
-    err = getattr(_build.library(src), entry)(
-        *(_build.ptr(t) for t in (params, *prep)), p, k, b, float(max_dist),
-        _build.ptr(partial), _build.ptr(m), _build.stream_of(params))
-    _build.check(err, f"{entry} kernel")
-    return m
 
 
 # ----------------------------------------------------- B4 point moments
@@ -301,8 +295,13 @@ def point_moments(params: torch.Tensor, prep: PointPrep, max_dist: float
             or prep.vmask.shape != (b,)):
         raise ValueError("point_moments: shapes do not match [P,12], [13,K,B], "
                          "[3,K,B], [3,B], [B]")
-    m = _run_moments("point_moments.cu", "svn_point_moments", _N_POINT_MOMENTS,
-                     params, prep, k, b, max_dist)
+    partial = torch.empty((-(-b // 128), _N_POINT_MOMENTS, p), dtype=torch.float32,
+                          device=params.device)
+    m = torch.empty((_N_POINT_MOMENTS, p), dtype=torch.float32, device=params.device)
+    err = _build.library("point_moments.cu").svn_point_moments(
+        *(_build.ptr(t) for t in (params, *prep)), p, k, b, float(max_dist),
+        _build.ptr(partial), _build.ptr(m), _build.stream_of(params))
+    _build.check(err, "svn_point_moments kernel")
     point_moments.launches += 1
     return assemble_point_system(m.T)
 

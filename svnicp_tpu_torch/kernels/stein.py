@@ -6,7 +6,8 @@ trust-region clip and the right-multiplicative SE(3) update, plus the two
 exit statistics, in one launch of `csrc/stein.cu` on the card. The plain
 version below is the same math on tensors (dtype-generic, so it runs in
 float64 too), with the bandwidth's lower median taken by sorting; the
-kernel takes the same order statistic by bit bisection.
+kernel takes the same order statistic by a radix select on the bit
+patterns, which `lower_median_radix` spells out step by step.
 """
 
 from __future__ import annotations
@@ -19,7 +20,32 @@ from svnicp_tpu_torch.core import geometry as geo
 from svnicp_tpu_torch.core import residuals
 from svnicp_tpu_torch.kernels import _build
 
-MAX_PARTICLES = 512   # one CUDA block, one thread per particle
+MAX_PARTICLES = 512   # one CUDA block, at most one thread per particle
+
+
+def lower_median_radix(sq: torch.Tensor) -> torch.Tensor:
+    """The lower median (element (n-1)//2 in sorted order) of a flat
+    non-negative float32 tensor, selected as the B3 kernel selects it: on
+    the values' bit patterns, which order like the values, in 4 passes of
+    8-bit digits from the top. Each pass counts the values that share the
+    digits chosen so far in a 256-bin histogram, and a prefix sum picks the
+    bin that holds the wanted rank. Equal to sorting, bit for bit. (The
+    kernel counts each unordered pair of its distance matrix once with
+    weight 2, and stops early once the chosen bin holds a single pair; both
+    give the same value.)"""
+    bits = sq.reshape(-1).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    rank = (bits.numel() - 1) // 2
+    prefix = 0
+    for shift in (24, 16, 8, 0):
+        high = 0 if shift == 24 else (0xFFFFFFFF << (shift + 8)) & 0xFFFFFFFF
+        match = (bits & high) == prefix
+        hist = torch.bincount((bits[match] >> shift) & 0xFF, minlength=256)
+        incl = torch.cumsum(hist, 0)
+        digit = int(torch.searchsorted(incl, rank, right=True))
+        rank -= int(incl[digit] - hist[digit])
+        prefix |= digit << shift
+    as_i32 = prefix - (1 << 32) if prefix >= 1 << 31 else prefix
+    return torch.tensor([as_i32], dtype=torch.int32).view(torch.float32)[0]
 
 
 def median_bandwidth(x: torch.Tensor) -> torch.Tensor:

@@ -52,12 +52,16 @@ def test_stage1_kernel(dev, b, nt, k):
 
 
 @pytest.mark.parametrize("ties", [False, True])
-@pytest.mark.parametrize("p,b,k", [(1, 7, 3), (10, 300, 12), (64, 1024, 32)])
+@pytest.mark.parametrize("p,b,k", [(1, 7, 3), (10, 300, 12), (64, 1024, 32),
+                                   (70, 1001, 104)])
 def test_plane_moments_kernel(dev, p, b, k, ties):
     # candidate j sits 0.1 (j+1) m from its point: the argmin and the gate
     # are far from near-ties under any rounding. With `ties`, candidate 1
     # takes candidate 0's score features but a larger n.q, an exact tie
-    # whose n.q values must be averaged.
+    # whose n.q values must be averaged. The kernel writes H and b itself:
+    # they must equal assemble_plane_system of the plain version's moments
+    # (which plane_moments_plain returns), H exactly symmetric. B=7 and
+    # B=1001 take the 4-byte copies, P=70 two particle groups.
     g = torch.Generator().manual_seed(p * b)
     src = torch.randn((b, 3), generator=g) * 5
     dirs = torch.nn.functional.normalize(torch.randn((b, k, 3), generator=g), dim=-1)
@@ -74,11 +78,17 @@ def test_plane_moments_kernel(dev, p, b, k, ties):
     if ties:
         prep.feat13[:, 1] = prep.feat13[:, 0]
         prep.ndotc[1] = prep.ndotc[0] + 0.05
+    before = nn.plane_moments.launches
     h_k, b_k = nn.plane_moments(params.contiguous(), prep, 3.0)
     torch.cuda.synchronize()
+    assert nn.plane_moments.launches == before + 1
+    assert h_k.shape == (p, 6, 6) and b_k.shape == (p, 6)
     h_p, b_p = nn.plane_moments_plain(params, prep, 3.0)
     torch.testing.assert_close(h_k, h_p, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(b_k, b_p, rtol=1e-4, atol=1e-3)
+    assert torch.equal(h_k, h_k.transpose(1, 2))
+    h_k2, b_k2 = nn.plane_moments(params.contiguous(), prep, 3.0)
+    assert torch.equal(h_k, h_k2) and torch.equal(b_k, b_k2)
 
 
 @pytest.mark.parametrize("ties", [False, True])
@@ -159,8 +169,10 @@ def test_nn_match_kernel(dev, p, b, k, ties):
 
 
 @pytest.mark.parametrize("use_prior", [False, True])
-@pytest.mark.parametrize("p", [2, 10, 64, 200])
+@pytest.mark.parametrize("p", [2, 10, 33, 64, 200, 300, 512])
 def test_stein_kernel(dev, p, use_prior):
+    # P <= 128 keeps the pairwise distances in shared memory, larger P
+    # recomputes them in each selection pass
     g = torch.Generator().manual_seed(p)
     a = torch.randn((p, 6, 6), generator=g)
     hess = a @ a.transpose(1, 2) + 10.0 * torch.eye(6)
@@ -170,11 +182,15 @@ def test_stein_kernel(dev, p, use_prior):
     prior = torch.tensor([[3.0] * 6, [0.5] * 6]) if use_prior else None
     args = [x.to(dev).contiguous() for x in (hess, b, r, t)]
     prior = None if prior is None else prior.to(dev)
+    before = stein.stein_update.launches
     out_k = stein.stein_update(*args, prior, max_dist=3.0)
     torch.cuda.synchronize()
+    assert stein.stein_update.launches == before + 1
     out_p = stein.stein_update_plain(*args, prior, max_dist=3.0)
     for got, want in zip(out_k, out_p):
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    out_k2 = stein.stein_update(*args, prior, max_dist=3.0)
+    assert all(torch.equal(a, c) for a, c in zip(out_k, out_k2))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -193,13 +209,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         nn.nn_match(torch.zeros((2, 13), device=dev), prep)
 
 
-def test_kernel_medians_are_exact(dev):
+@pytest.mark.parametrize("p,copies", [(16, 2), (300, 6)])
+def test_kernel_medians_are_exact(dev, p, copies):
     """Duplicated particles make many equal pairwise distances: the kernel's
-    bisection median must still land on the sorted lower median, so the
+    radix-select median must still land on the sorted lower median, so the
     update equals the plain version's."""
-    p = 16
-    base = torch.tensor(np.linspace(0, 1, p // 2), dtype=torch.float32)
-    t = torch.stack([base, base, base], 1).repeat(2, 1)
+    base = torch.tensor(np.linspace(0, 1, p // copies), dtype=torch.float32)
+    t = torch.stack([base, base, base], 1).repeat(copies, 1)
     r = torch.eye(3).repeat(p, 1, 1)
     hess = torch.eye(6).repeat(p, 1, 1) * 5.0
     b = torch.ones((p, 6))

@@ -1,8 +1,9 @@
 """The port stands alone and never quietly runs on the CPU.
 
-- A static scan of every module of `svnicp_tpu_torch/`, of `chip_smoke.py`
-  and of the card-only test file finds no import of jax, jaxlib or the JAX
-  package (a static scan, because this test process imports JAX anyway).
+- A static scan of every module of `svnicp_tpu_torch/`, of `chip_smoke.py`,
+  of the card-only test file and of the port's card tools (`tools/torch_*`)
+  finds no import of jax, jaxlib or the JAX package (a static scan, because
+  this test process imports JAX anyway).
 - Entry points default to the card: `LIOPipeline(cfg)` raises on a host
   without CUDA, and a kernel wrapper handed non-CPU tensors launches its
   kernel or raises, never computing on the CPU instead.
@@ -26,7 +27,8 @@ FORBIDDEN = ("jax", "jaxlib", "svnicp_tpu")
 
 def _port_files():
     files = sorted((ROOT / "svnicp_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+                    *sorted((ROOT / "tools").glob("torch_*.py"))]
 
 
 def _imported_roots(path: pathlib.Path):
