@@ -1,194 +1,480 @@
-// B4: fused point-to-point correspondence + Gauss-Newton block moments.
+// B4: fused point-to-point correspondence + Gauss-Newton system.
 //
 // Replaces the TPU kernel svnicp_tpu/kernels/nn_pallas.py:fused_moments_kb
-// (body _moments_kernel_kb). For every (particle p, source point b): the min
-// over the K candidates of score = params13[p] . feat13[:, k, b]
-// (|c|^2 - 2 <T_p s_b, c>), the mean of the tied minima's coordinates (the
-// matched point q), the gate d2 = max(best + |T_p s_b|^2, 0) < max_dist
-// (squared distance against the unsquared max_dist: the reference quirk)
-// with best < 1e30 (a point with no valid candidate has best = +inf), the
-// residual e = (T_p s_b - q) * gate, the weight (md/(md + 3|e|))^2 times the
-// point mask (a gated-out pair keeps w = 1 with e = 0 and s = 0, so it adds
-// only to sw: the reference's identity damping), and the 19 block moments
-// sw, m1 = sum w s, m2 = sum w s s^T, b_t = sum R^T (w e),
-// b_r = sum s x R^T (w e), with s = s_b * gate. The host assembles H and b
-// from them. Those 19 sums over the points of a block go to per-tile
-// partials [n_tiles, 19, P]; a second pass sums the tiles in a fixed order
-// (no atomics), so repeated runs give bit-identical moments.
+// (body _moments_kernel_kb, and the block-moment assembly after it). For
+// every (particle p, source point b): the min over the K candidates of
+// score = params13[p] . feat13[:, k, b] (|c|^2 - 2 <T_p s_b, c>), the mean
+// of the tied minima's coordinates (the matched point q), the gate
+// d2 = max(best + |T_p s_b|^2, 0) < max_dist (squared distance against the
+// unsquared max_dist: the reference quirk) with best < 1e30 (a point with
+// no valid candidate has best = +inf), the residual e = (T_p s_b - q) * gate,
+// the weight (md/(md + 3|e|))^2 times the point mask (a gated-out pair keeps
+// w = 1 with e = 0 and s = 0, so it adds only to sw: the reference's
+// identity damping), and the system
+//   H = [[sw I, -[m1]x], [[m1]x, tr(m2) I - m2]] + 1e-6 I,   b = [b_t, b_r],
+// sw = sum w, m1 = sum w s, m2 = sum w s s^T, b_t = sum R^T (w e),
+// b_r = sum s x R^T (w e), with s = s_b * gate. Every distinct entry of H
+// and b is one sum over the points: sw, m1 [3], the diagonal of
+// tr(m2) I - m2 (sum w (s_j^2 + s_k^2), j, k the other two axes) [3], m2's
+// off-diagonal [3], b_t [3] and b_r [3], 16 sums. So H is symmetric by
+// construction and no entry waits for another. The 16 sums over a block's
+// points go to per-tile partials [n_tiles, 16, P]; a second kernel sums the
+// tiles in a fixed order (no atomics, so repeated runs give the same bits)
+// and writes H [P,6,6] and b [P,6] itself.
 //
-// What bounds it: the function needs each slot's 3 coordinates and validity
-// (~5.3 MB at the geode path's shapes, P=10, K=100, B=4096) and, in the form
-// |c|^2 - 2 c.(T s), about 8 flops per (particle, valid slot) plus ~165 per
-// (particle, point), ~0.04 GFLOP: bytes at those shapes, bytes and
-// arithmetic about equal at subt_mrs's (P=30, B=8192). This first kernel
-// instead reads the prepared 13-float features of each slot (feat13, the B2
-// layout) plus its 3 coordinates, 16 floats per slot (27 MB at geode
-// shapes), and does 13 FMAs per (particle, slot), once per group of 8
-// particles: particles sit in shared memory, points on threads, so the
-// loads are coalesced along B; each thread keeps the running min, tie count
-// and coordinate sums of its 8 particles in registers, and the 19 moments
-// are reduced with warp shuffles and then across the block's 4 warps in
-// shared memory.
+// What bounds it: the prepared operands, 16 floats per slot (feat13 and
+// cand_t: 27.3 MB at the geode path's shapes P=10, B=4096, K=104, 8.1 us at
+// 3.35 TB/s), beside the score's 13 FMAs per (particle, point, slot) and
+// the minimum and tie pass after them, which are issued at up to one warp
+// instruction per cycle and scheduler (at subt_mrs's P=30, B=8192 about as
+// long as the bytes). The design:
+//   - a block owns a tile of 16 points and serves a group of up to 32
+//     particles from one copy of the tile's operands in shared memory, so
+//     the operands cross device memory once per launch for P <= 32;
+//   - the tile is staged in chunks of 8 candidates with cp.async, two
+//     chunks in flight while one is scored (four buffers, one barrier a
+//     chunk); the source points and mask come with the first chunk;
+//   - a lane holds one particle and 4 points, whose operands are one float4
+//     per candidate and row that the lanes of a point group read at once
+//     (a broadcast). The particle group has G = 16 or 32 lanes, fixed at
+//     compile time: 16 up to P=16, else 32 (grid y takes more groups of 32
+//     above that), so P=10 and P=30 leave 6 and 2 of G lanes idle and a
+//     warp holds 32/G point groups;
+//   - a block has 4 warps. At G = 32 they cover the tile's 16 points; at
+//     G = 16 two warps do, and the two such pairs of warps share each
+//     chunk's candidates and hand their running minima over at the end, so
+//     that P=10 runs as many warps as P=30;
+//   - a chunk's scores stay in registers: one min over them, then one
+//     equality pass adds the ties as hit * x by an FMA, in candidate order
+//     within a warp (B2's scheme, with the three coordinates in place of
+//     n.q);
+//   - the 16 sums: over a lane's 4 points in registers, over the warp's
+//     point groups by shuffles, over the block's warps in shared memory,
+//     each in a fixed order;
+//   - the system kernel reads the partials coalesced along the particles.
 
-#include "tiles.cuh"
+#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr int kPts = 128;   // source points per block (one per thread)
-constexpr int kPart = 8;    // particles per block
-constexpr int kMom = 19;    // sw, m1[3], m2[9], b_t[3], b_r[3]
-constexpr int kWarps = kPts / 32;
+constexpr int kTile = 16;              // source points per block
+constexpr int kLanePts = 4;            // points per lane: one float4
+constexpr int kChunk = 8;              // candidates per stage
+constexpr int kRows = 16 * kChunk;     // 13 feature rows + 3 coordinates, per candidate
+constexpr int kStage = kRows * kTile;  // floats per stage
+constexpr int kAhead = 2;              // chunks in flight while one is scored
+constexpr int kStages = kAhead + 2;    // + the chunk scored + the one a warp may still read
+constexpr int kMom = 16;               // distinct sums of H and b (see above)
+constexpr int kWarps = 4;              // warps per block
+constexpr int kThreads = 32 * kWarps;
 
-__global__ void __launch_bounds__(kPts)
+// The lanes of a block whose particle group has G particles: a lane holds
+// one particle and 4 points, a warp covers 32 / G groups of 4 points, and
+// the tile's points take kPtWarps warps; the block's 4 warps are kSlices
+// such sets, which share each chunk's candidates (kSliceK each).
+template <int G>
+struct Shape {
+  static constexpr int kWarpPts = 32 / G * kLanePts;   // points per warp
+  static constexpr int kPtWarps = kTile / kWarpPts;
+  static constexpr int kSlices = kWarps / kPtWarps;
+  static constexpr int kSliceK = kChunk / kSlices;
+  static constexpr int kState = 5 * kLanePts;          // running minima: best, count, x, y, z
+  static constexpr int kHand = (kSlices - 1) * kState * kPtWarps * 32;  // minima handed over
+  static_assert(kTile % kWarpPts == 0 && kWarps % kPtWarps == 0 && kChunk % kSlices == 0,
+                "a tile holds whole warps, a block whole slices, a chunk whole slices");
+  static_assert(kHand + kPtWarps * kMom * G <= kStages * kStage,
+                "the hand-over and the warp sums reuse the stage buffers");
+};
+
+// Copy candidates [k0, k0 + kChunk) of the tile's points b0.. into `st`:
+// row c * kChunk + kk (c < 13: feat13 row c, else cand_t row c - 13), kTile
+// floats each. Slots past B are zero-filled; slots past K too, but for a
+// NaN bias (the |c|^2 row), so their score is NaN: no minimum, no tie.
+#define kNaN __int_as_float(0x7FC00000)
+__device__ __forceinline__ void load_chunk(float* st, const float* __restrict__ feat13,
+                                           const float* __restrict__ cand_t, int K, int B,
+                                           int k0, int b0, bool vec) {
+  const long long kb = static_cast<long long>(K) * B;
+  if (vec) {  // B % 4 == 0: four 16-byte copies a thread. Thread (warp w, lane l)
+              // copies candidate k0 + l / 4 of points b0 + 4 (l % 4) .. + 3 in rows
+              // w, w + 4, w + 8 and w + 12: one address and test a chunk, not a copy
+    static_assert(kTile == 16 && kChunk == 8 && kThreads == 128, "the copy map below");
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, kk = lane >> 2, seg = lane & 3;
+    const int k = k0 + kk, b = b0 + seg * 4;
+    const bool ok = k < K && b < B;
+    const long long off = ok ? static_cast<long long>(k) * B + b : 0;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = w + 4 * n;
+      float* dst = st + (c * kChunk + kk) * kTile + seg * 4;
+      const float* src = c < 13 ? feat13 + c * kb + off : cand_t + (c - 13) * kb + off;
+      if (c == 12 && k >= K) {
+        *reinterpret_cast<float4*>(dst) = make_float4(kNaN, kNaN, kNaN, kNaN);
+      } else {
+        cp_async16(dst, src, ok);
+      }
+    }
+  } else {  // kept rolled: unrolled, its addresses hoisted out of the chunk loop spill
+#pragma unroll 1
+    for (int e = threadIdx.x; e < kRows * kTile; e += kThreads) {
+      const int row = e / kTile, t = e % kTile;
+      const int c = row / kChunk, k = k0 + (row - c * kChunk), b = b0 + t;
+      const bool ok = k < K && b < B;
+      const long long off = static_cast<long long>(k) * B + b;
+      const float* src = !ok ? feat13 : c < 13 ? feat13 + c * kb + off : cand_t + (c - 13) * kb + off;
+      if (c == 12 && k >= K) {
+        st[row * kTile + t] = kNaN;
+      } else {
+        cp_async4(st + row * kTile + t, src, ok);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads)
 point_moments_kernel(const float* __restrict__ params,   // [P,12]
                      const float* __restrict__ feat13,   // [13,K,B]
                      const float* __restrict__ cand_t,   // [3,K,B]
                      const float* __restrict__ src_t,    // [3,B]
                      const float* __restrict__ vmask,    // [B]
-                     int P, int K, int B, float max_dist,
-                     float* __restrict__ partial) {      // [n_tiles,19,P]
-  __shared__ float prm[kPart][13];
-  __shared__ float red[kWarps][kPart][kMom];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int tile = blockIdx.x;
-  const int p0 = blockIdx.y * kPart;
-  const int b = tile * kPts + tid;
-  if (tid < kPart * 13) {
-    const int q = tid / 13, c = tid - q * 13;
-    const int p = p0 + q;
-    prm[q][c] = p < P ? (c < 12 ? params[p * 12 + c] : 1.f) : 0.f;
+                     int P, int K, int B, float max_dist, int vec,
+                     float* __restrict__ partial) {      // [n_tiles,16,P]
+  using S = Shape<G>;
+  constexpr int kSliceK = S::kSliceK;
+  __shared__ __align__(16) float smem[kStages * kStage];
+  __shared__ float pts[4][kTile];  // source [3], mask
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slice = warp / S::kPtWarps, pw = warp % S::kPtWarps;
+  const int tile = blockIdx.x, b0 = tile * kTile;
+  const int slot = lane % G, p = blockIdx.y * G + slot;     // the lane's particle
+  const int t0 = pw * S::kWarpPts + lane / G * kLanePts;   // its first point in the tile
+  const bool live_p = p < P;
+
+  // params13 = [vec(R), t, 1]; a lane past P scores with 0, ..., 0, 1
+  float prm[13];
+#pragma unroll
+  for (int c = 0; c < 13; ++c) prm[c] = c == 12 ? 1.f : live_p ? params[p * 12 + c] : 0.f;
+  float best[kLanePts], cnt[kLanePts], qx[kLanePts], qy[kLanePts], qz[kLanePts];
+#pragma unroll
+  for (int j = 0; j < kLanePts; ++j) {
+    best[j] = INFINITY;
+    cnt[j] = 0.f;
+    qx[j] = 0.f;
+    qy[j] = 0.f;
+    qz[j] = 0.f;
+  }
+
+  // the tile's source points and mask, in the first copy group
+  for (int e = threadIdx.x; e < 4 * kTile; e += kThreads) {
+    const int row = e / kTile, t = e % kTile, b = b0 + t;
+    const float* src = b >= B ? src_t : row < 3 ? src_t + row * B + b : vmask + b;
+    cp_async4(&pts[row][t], src, b < B);
+  }
+  // one copy group per chunk (an empty one past the last chunk), so waiting
+  // for all but the newest kAhead groups waits for chunk ch. The copy of
+  // chunk ch + kAhead goes to the buffer of chunk ch - 2, which every warp
+  // left before the barrier of chunk ch - 1: a chunk needs one barrier.
+  const int n_chunks = (K + kChunk - 1) / kChunk;
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) {
+    if (a < n_chunks) {
+      load_chunk(smem + a * kStage, feat13, cand_t, K, B, a * kChunk, b0, vec != 0);
+    } else {
+      cp_async_commit();
+    }
+  }
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int next = ch + kAhead;
+    if (next < n_chunks) {
+      load_chunk(smem + (next % kStages) * kStage, feat13, cand_t, K, B, next * kChunk, b0,
+                 vec != 0);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait<kAhead>();
+    __syncthreads();
+    // the slice's candidates of the chunk, slice * kSliceK + i
+    const float* st = smem + (ch % kStages) * kStage + slice * kSliceK * kTile + t0;
+    float sc[kSliceK][kLanePts];
+#pragma unroll
+    for (int i = 0; i < kSliceK; ++i) {
+#pragma unroll
+      for (int j = 0; j < kLanePts; ++j) sc[i][j] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 13; ++c) {
+        const float4 f = *reinterpret_cast<const float4*>(st + (c * kChunk + i) * kTile);
+        sc[i][0] += prm[c] * f.x;
+        sc[i][1] += prm[c] * f.y;
+        sc[i][2] += prm[c] * f.z;
+        sc[i][3] += prm[c] * f.w;
+      }
+    }
+    // a smaller minimum restarts the tie count and coordinate sums; then
+    // every score equal to the minimum adds to them, in candidate order: the
+    // same set and the same order of sums as a running minimum over k. +inf
+    // == +inf is a tie, as in the plain version: a point whose slots are all
+    // invalid averages them and is gated out below.
+#pragma unroll
+    for (int j = 0; j < kLanePts; ++j) {
+      float cmin = sc[0][j];
+#pragma unroll
+      for (int i = 1; i < kSliceK; ++i) cmin = fminf(cmin, sc[i][j]);
+      const bool lower = cmin < best[j];
+      best[j] = lower ? cmin : best[j];
+      cnt[j] = lower ? 0.f : cnt[j];
+      qx[j] = lower ? 0.f : qx[j];
+      qy[j] = lower ? 0.f : qy[j];
+      qz[j] = lower ? 0.f : qz[j];
+    }
+#pragma unroll
+    for (int i = 0; i < kSliceK; ++i) {
+      const float4 x4 = *reinterpret_cast<const float4*>(st + (13 * kChunk + i) * kTile);
+      const float4 y4 = *reinterpret_cast<const float4*>(st + (14 * kChunk + i) * kTile);
+      const float4 z4 = *reinterpret_cast<const float4*>(st + (15 * kChunk + i) * kTile);
+      const float cx[4] = {x4.x, x4.y, x4.z, x4.w};
+      const float cy[4] = {y4.x, y4.y, y4.z, y4.w};
+      const float cz[4] = {z4.x, z4.y, z4.z, z4.w};
+#pragma unroll
+      for (int j = 0; j < kLanePts; ++j) {
+        // hit * x as the plain version sums it: fma(1, x, q) rounds as q + x
+        const float hit = sc[i][j] == best[j] ? 1.f : 0.f;
+        cnt[j] += hit;
+        qx[j] = fmaf(hit, cx[j], qx[j]);
+        qy[j] = fmaf(hit, cy[j], qy[j]);
+        qz[j] = fmaf(hit, cz[j], qz[j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the hand-over and the warp sums below reuse the stage buffers
+
+  // slices 1.. hand their running minima to slice 0, which takes them in
+  // slice order: a smaller minimum replaces, an equal one adds its ties.
+  // (The set of ties is the plain version's; three or more tied across
+  // slices are summed in another order.)
+  constexpr int kLanes = S::kPtWarps * 32;
+  float* hand = smem;  // [kSlices - 1][kState][kLanes]
+  float* red = smem + S::kHand;  // [kPtWarps][16][G]
+  const int li = pw * 32 + lane;
+  if (slice > 0) {
+    float* h = hand + (slice - 1) * S::kState * kLanes + li;
+#pragma unroll
+    for (int j = 0; j < kLanePts; ++j) {
+      h[(5 * j) * kLanes] = best[j];
+      h[(5 * j + 1) * kLanes] = cnt[j];
+      h[(5 * j + 2) * kLanes] = qx[j];
+      h[(5 * j + 3) * kLanes] = qy[j];
+      h[(5 * j + 4) * kLanes] = qz[j];
+    }
   }
   __syncthreads();
-
-  const bool live = b < B;
-  float best[kPart], cnt[kPart], qx[kPart], qy[kPart], qz[kPart];
+  if (slice == 0) {
+    for (int sl = 1; sl < S::kSlices; ++sl) {
+      const float* h = hand + (sl - 1) * S::kState * kLanes + li;
 #pragma unroll
-  for (int q = 0; q < kPart; ++q) {
-    best[q] = INFINITY;
-    cnt[q] = 0.f;
-    qx[q] = 0.f;
-    qy[q] = 0.f;
-    qz[q] = 0.f;
-  }
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, vm = 0.f;
-  if (live) {
-    const long long kb = static_cast<long long>(K) * B;
-    for (int k = 0; k < K; ++k) {
-      const long long off = static_cast<long long>(k) * B + b;
-      float f[13];
-#pragma unroll
-      for (int c = 0; c < 13; ++c) f[c] = feat13[c * kb + off];
-      const float cx = cand_t[off], cy = cand_t[kb + off], cz = cand_t[2 * kb + off];
-#pragma unroll
-      for (int q = 0; q < kPart; ++q) {
-        float s = 0.f;
-#pragma unroll
-        for (int c = 0; c < 13; ++c) s += prm[q][c] * f[c];
-        // +inf == +inf counts as a tie, as in the plain version: a point
-        // whose slots are all invalid averages them and is gated out below
-        if (s < best[q]) {
-          best[q] = s;
-          cnt[q] = 1.f;
-          qx[q] = cx;
-          qy[q] = cy;
-          qz[q] = cz;
-        } else if (s == best[q]) {
-          cnt[q] += 1.f;
-          qx[q] += cx;
-          qy[q] += cy;
-          qz[q] += cz;
+      for (int j = 0; j < kLanePts; ++j) {
+        const float b1 = h[(5 * j) * kLanes];
+        if (b1 < best[j]) {
+          best[j] = b1;
+          cnt[j] = h[(5 * j + 1) * kLanes];
+          qx[j] = h[(5 * j + 2) * kLanes];
+          qy[j] = h[(5 * j + 3) * kLanes];
+          qz[j] = h[(5 * j + 4) * kLanes];
+        } else if (b1 == best[j]) {
+          cnt[j] += h[(5 * j + 1) * kLanes];
+          qx[j] += h[(5 * j + 2) * kLanes];
+          qy[j] += h[(5 * j + 3) * kLanes];
+          qz[j] += h[(5 * j + 4) * kLanes];
         }
       }
     }
-    s0 = src_t[b];
-    s1 = src_t[B + b];
-    s2 = src_t[2 * B + b];
-    vm = vmask[b];
-  }
-
-#pragma unroll
-  for (int q = 0; q < kPart; ++q) {
+    // the 16 sums of the lane's particle over its 4 points. No branch: a
+    // point past B (zero-filled) or a particle past P has w = 0 and every
+    // other factor finite, so it adds exactly 0.
     float m[kMom];
 #pragma unroll
     for (int v = 0; v < kMom; ++v) m[v] = 0.f;
-    if (live && p0 + q < P) {
-      const float* pr = prm[q];
-      const float t0 = pr[0] * s0 + pr[1] * s1 + pr[2] * s2 + pr[9];
-      const float t1 = pr[3] * s0 + pr[4] * s1 + pr[5] * s2 + pr[10];
-      const float t2 = pr[6] * s0 + pr[7] * s1 + pr[8] * s2 + pr[11];
-      const float d2 = fmaxf(best[q] + (t0 * t0 + t1 * t1 + t2 * t2), 0.f);
-      const bool gate = (d2 < max_dist) && (best[q] < 1e30f);
-      const float inv = 1.f / fmaxf(cnt[q], 1.f);
-      const float e0 = gate ? t0 - qx[q] * inv : 0.f;
-      const float e1 = gate ? t1 - qy[q] * inv : 0.f;
-      const float e2 = gate ? t2 - qz[q] * inv : 0.f;
+#pragma unroll
+    for (int j = 0; j < kLanePts; ++j) {
+      const int t = t0 + j;
+      const float s0 = pts[0][t], s1 = pts[1][t], s2 = pts[2][t];
+      const float vm = live_p ? pts[3][t] : 0.f;
+      const float x0 = prm[0] * s0 + prm[1] * s1 + prm[2] * s2 + prm[9];
+      const float x1 = prm[3] * s0 + prm[4] * s1 + prm[5] * s2 + prm[10];
+      const float x2 = prm[6] * s0 + prm[7] * s1 + prm[8] * s2 + prm[11];
+      const float d2 = fmaxf(best[j] + (x0 * x0 + x1 * x1 + x2 * x2), 0.f);
+      const bool gate = (d2 < max_dist) && (best[j] < 1e30f);
+      const float inv = 1.f / fmaxf(cnt[j], 1.f);
+      const float e0 = gate ? x0 - qx[j] * inv : 0.f;
+      const float e1 = gate ? x1 - qy[j] * inv : 0.f;
+      const float e2 = gate ? x2 - qz[j] * inv : 0.f;
       const float en = sqrtf(e0 * e0 + e1 * e1 + e2 * e2);
       float w = max_dist / (max_dist + 3.f * en);
       w = w * w * vm;
       const float we0 = w * e0, we1 = w * e1, we2 = w * e2;
       const float g0 = gate ? s0 : 0.f, g1 = gate ? s1 : 0.f, g2 = gate ? s2 : 0.f;
-      // R^T (w e), R[i][j] = pr[3 i + j]
-      const float r0 = pr[0] * we0 + pr[3] * we1 + pr[6] * we2;
-      const float r1 = pr[1] * we0 + pr[4] * we1 + pr[7] * we2;
-      const float r2 = pr[2] * we0 + pr[5] * we1 + pr[8] * we2;
-      const float g[3] = {g0, g1, g2};
-      m[0] = w;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        m[1 + i] = w * g[i];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) m[4 + 3 * i + j] = w * g[i] * g[j];
-      }
-      m[13] = r0;
-      m[14] = r1;
-      m[15] = r2;
-      m[16] = g1 * r2 - g2 * r1;
-      m[17] = g2 * r0 - g0 * r2;
-      m[18] = g0 * r1 - g1 * r0;
+      // R^T (w e), R[i][j] = prm[3 i + j]
+      const float r0 = prm[0] * we0 + prm[3] * we1 + prm[6] * we2;
+      const float r1 = prm[1] * we0 + prm[4] * we1 + prm[7] * we2;
+      const float r2 = prm[2] * we0 + prm[5] * we1 + prm[8] * we2;
+      const float wg0 = w * g0, wg1 = w * g1, wg2 = w * g2;
+      m[0] += w;
+      m[1] += wg0;
+      m[2] += wg1;
+      m[3] += wg2;
+      m[4] += wg1 * g1 + wg2 * g2;  // tr(m2) - m2[i][i]
+      m[5] += wg0 * g0 + wg2 * g2;
+      m[6] += wg0 * g0 + wg1 * g1;
+      m[7] += wg0 * g1;  // m2[0][1], [0][2], [1][2]
+      m[8] += wg0 * g2;
+      m[9] += wg1 * g2;
+      m[10] += r0;
+      m[11] += r1;
+      m[12] += r2;
+      m[13] += g1 * r2 - g2 * r1;
+      m[14] += g2 * r0 - g0 * r2;
+      m[15] += g0 * r1 - g1 * r0;
     }
+    // over the warp's point groups (lanes G apart), then over the warps in order
 #pragma unroll
     for (int v = 0; v < kMom; ++v) {
-      const float s = warp_sum(m[v]);
-      if (lane == 0) red[warp][q][v] = s;
+#pragma unroll
+      for (int off = G; off < 32; off <<= 1) m[v] += __shfl_xor_sync(0xffffffffu, m[v], off);
+    }
+    if (lane < G) {
+#pragma unroll
+      for (int v = 0; v < kMom; ++v) red[(pw * kMom + v) * G + slot] = m[v];
     }
   }
   __syncthreads();
-  for (int e = tid; e < kPart * kMom; e += kPts) {
-    const int q = e / kMom, v = e - q * kMom;
-    const int p = p0 + q;
-    if (p < P) {
+  for (int e = threadIdx.x; e < kMom * G; e += kThreads) {
+    const int v = e / G, q = e % G, pq = blockIdx.y * G + q;
+    if (pq < P) {
       float s = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += red[w][q][v];
-      partial[(static_cast<long long>(tile) * kMom + v) * P + p] = s;
+      for (int w = 0; w < S::kPtWarps; ++w) s += red[(w * kMom + v) * G + q];
+      partial[(static_cast<long long>(tile) * kMom + v) * P + pq] = s;
     }
   }
 }
 
+// H[i][j] and H[j][i] of one particle's row-major H.
+__device__ __forceinline__ void put2(float* h, int i, int j, float x) {
+  h[i * 6 + j] = x;
+  h[j * 6 + i] = x;
+}
+
+// The tiles' partials summed in a fixed order and written as the system.
+// Block (v, particle group): thread (p, g) sums every kSysGroups-th tile
+// (loads coalesced along p), then thread (p, 0) adds the groups in order and
+// writes the entries of H[p] (or b[p]) that sum v is.
+constexpr int kSysPart = 32;
+constexpr int kSysGroups = 16;
+
+__global__ void __launch_bounds__(kSysPart * kSysGroups)
+point_system_kernel(const float* __restrict__ partial, int n_tiles, int P,
+                    float* __restrict__ h_out, float* __restrict__ b_out) {
+  __shared__ float red[kSysGroups][kSysPart];
+  const int v = blockIdx.x;
+  const int pl = threadIdx.x % kSysPart, g = threadIdx.x / kSysPart;
+  const int p = blockIdx.y * kSysPart + pl;
+  float s = 0.f;
+  if (p < P) {
+#pragma unroll 8
+    for (int t = g; t < n_tiles; t += kSysGroups) {
+      s += partial[(static_cast<long long>(t) * kMom + v) * P + p];
+    }
+  }
+  red[g][pl] = s;
+  __syncthreads();
+  if (g != 0 || p >= P) return;
+  s = 0.f;
+#pragma unroll
+  for (int q = 0; q < kSysGroups; ++q) s += red[q][pl];
+  float* h = h_out + p * 36;
+  switch (v) {
+    case 0:  // sw I + 1e-6 I, and the zeros of H
+      for (int i = 0; i < 3; ++i) {
+        h[i * 7] = s + 1e-6f;
+        put2(h, i, (i + 1) % 3, 0.f);
+        put2(h, i, i + 3, 0.f);
+      }
+      break;
+    case 1:  // m1 in [m1]x (rows 3-5, columns 0-2) and -[m1]x (its transpose)
+      put2(h, 1, 5, s);
+      put2(h, 2, 4, -s);
+      break;
+    case 2:
+      put2(h, 2, 3, s);
+      put2(h, 0, 5, -s);
+      break;
+    case 3:
+      put2(h, 0, 4, s);
+      put2(h, 1, 3, -s);
+      break;
+    case 4:  // tr(m2) - m2[i][i] + 1e-6
+    case 5:
+    case 6:
+      h[(v - 1) * 7] = s + 1e-6f;
+      break;
+    case 7:  // -m2[0][1], -m2[0][2], -m2[1][2]
+      put2(h, 3, 4, -s);
+      break;
+    case 8:
+      put2(h, 3, 5, -s);
+      break;
+    case 9:
+      put2(h, 4, 5, -s);
+      break;
+    default:  // b_t, b_r
+      b_out[p * 6 + (v - 10)] = s;
+  }
+}
+
+template <int G>
+cudaError_t launch_moments(const float* params, const float* feat13, const float* cand_t,
+                           const float* src_t, const float* vmask, int P, int K, int B,
+                           float max_dist, int vec, int n_tiles, float* partial,
+                           cudaStream_t st) {
+  const dim3 grid(n_tiles, (P + G - 1) / G);
+  SVN_LAUNCH(point_moments_kernel<G>, grid, kThreads, 0, st)(
+      params, feat13, cand_t, src_t, vmask, P, K, B, max_dist, vec, partial);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Writes the per-particle moments [19, P] (row 0: sw, 1-3: m1, 4-12: m2
-// row-major, 13-15: b_t, 16-18: b_r) into `out`; `partial` is scratch of
-// ceil(B/128)*19*P floats.
+// Writes the point-to-point system H [P,6,6] (symmetric, + 1e-6 I) into
+// `h_out` and b [P,6] into `b_out`; `partial` is scratch of
+// ceil(B/16)*16*P floats.
 SVN_EXPORT int svn_point_moments(const void* params, const void* feat13, const void* cand_t,
                                  const void* src_t, const void* vmask, int P, int K, int B,
-                                 float max_dist, void* partial, void* out, void* stream) {
+                                 float max_dist, void* partial, void* h_out, void* b_out,
+                                 void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (B + kPts - 1) / kPts;
-  if (P > 0) {
-    if (n_tiles > 0) {
-      const dim3 grid(n_tiles, (P + kPart - 1) / kPart);
-      SVN_LAUNCH(point_moments_kernel, grid, kPts, 0, st)(
-          static_cast<const float*>(params), static_cast<const float*>(feat13),
-          static_cast<const float*>(cand_t), static_cast<const float*>(src_t),
-          static_cast<const float*>(vmask), P, K, B, max_dist, static_cast<float*>(partial));
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    const int n = kMom * P;
-    SVN_LAUNCH(sum_tiles_kernel, (n + 255) / 256, 256, 0, st)(
-        static_cast<const float*>(partial), n_tiles, n, static_cast<float*>(out));
+  const int n_tiles = (B + kTile - 1) / kTile;
+  if (P <= 0) return static_cast<int>(cudaSuccess);
+  if (n_tiles > 0) {
+    const int vec = B % 4 == 0 && reinterpret_cast<uintptr_t>(feat13) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(cand_t) % 16 == 0;
+    const auto* prm = static_cast<const float*>(params);
+    const auto* f13 = static_cast<const float*>(feat13);
+    const auto* cnd = static_cast<const float*>(cand_t);
+    const auto* src = static_cast<const float*>(src_t);
+    const auto* msk = static_cast<const float*>(vmask);
+    auto* out = static_cast<float*>(partial);
+    const cudaError_t err =
+        P <= 16 ? launch_moments<16>(prm, f13, cnd, src, msk, P, K, B, max_dist, vec, n_tiles, out, st)
+                : launch_moments<32>(prm, f13, cnd, src, msk, P, K, B, max_dist, vec, n_tiles, out, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const dim3 sys_grid(kMom, (P + kSysPart - 1) / kSysPart);
+  SVN_LAUNCH(point_system_kernel, sys_grid, kSysPart * kSysGroups, 0, st)(
+      static_cast<const float*>(partial), n_tiles, P, static_cast<float*>(h_out),
+      static_cast<float*>(b_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,7 +37,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "stage1.cu": {"svn_stage1_candidates": [_P] * 4 + [_I] * 5 + [_P] * 3},
     "plane_moments.cu": {"svn_plane_moments": [_P] * 6 + [_I] * 3 + [_F] + [_P] * 4},
-    "point_moments.cu": {"svn_point_moments": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 3},
+    "point_moments.cu": {"svn_point_moments": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 4},
     "stein.cu": {"svn_stein_update": [_P] * 5 + [_I, _F] + [_P] * 4},
     "nn_match.cu": {"svn_nn_match": [_P] * 3 + [_I] * 3 + [_P] * 3},
 }

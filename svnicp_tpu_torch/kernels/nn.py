@@ -27,7 +27,8 @@ from svnicp_tpu_torch.kernels.knn import bucket_block_size, group_scores
 
 _JITTER = 1e-6
 _N_MOMENTS = 27
-_N_POINT_MOMENTS = 19
+_N_POINT_SUMS = 16   # B4's per-tile sums: the distinct entries of H and b
+_POINT_TILE = 16     # B4's source points per block (kTile in point_moments.cu)
 
 
 # --------------------------------------------------------------- B1 stage-1
@@ -295,15 +296,17 @@ def point_moments(params: torch.Tensor, prep: PointPrep, max_dist: float
             or prep.vmask.shape != (b,)):
         raise ValueError("point_moments: shapes do not match [P,12], [13,K,B], "
                          "[3,K,B], [3,B], [B]")
-    partial = torch.empty((-(-b // 128), _N_POINT_MOMENTS, p), dtype=torch.float32,
+    # the kernel writes the system itself (no assemble_point_system here)
+    partial = torch.empty((-(-b // _POINT_TILE), _N_POINT_SUMS, p), dtype=torch.float32,
                           device=params.device)
-    m = torch.empty((_N_POINT_MOMENTS, p), dtype=torch.float32, device=params.device)
+    h = torch.empty((p, 6, 6), dtype=torch.float32, device=params.device)
+    bvec = torch.empty((p, 6), dtype=torch.float32, device=params.device)
     err = _build.library("point_moments.cu").svn_point_moments(
         *(_build.ptr(t) for t in (params, *prep)), p, k, b, float(max_dist),
-        _build.ptr(partial), _build.ptr(m), _build.stream_of(params))
-    _build.check(err, "svn_point_moments kernel")
+        _build.ptr(partial), _build.ptr(h), _build.ptr(bvec), _build.stream_of(params))
+    _build.check(err, "point_moments kernel")
     point_moments.launches += 1
-    return assemble_point_system(m.T)
+    return h, bvec
 
 
 point_moments.launches = 0

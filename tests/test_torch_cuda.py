@@ -92,13 +92,20 @@ def test_plane_moments_kernel(dev, p, b, k, ties):
 
 
 @pytest.mark.parametrize("ties", [False, True])
-@pytest.mark.parametrize("p,b,k", [(1, 7, 3), (10, 300, 12), (30, 1000, 100)])
+@pytest.mark.parametrize("p,b,k", [(1, 7, 3), (10, 7, 12), (10, 300, 12), (30, 1000, 100),
+                                   (64, 1024, 32), (70, 1001, 104)])
 def test_point_moments_kernel(dev, p, b, k, ties):
     # candidate j sits 0.1 (j+1) m from its point, a sixth of the points
     # lie beyond the gate, 10% of the slots and of the points are invalid,
     # and K is padded to a multiple of 8 as on the path. With `ties`,
     # candidate 1 takes candidate 0's score features but another position,
-    # an exact tie whose points must be averaged.
+    # an exact tie whose points must be averaged; candidates 5 and 9 tie with
+    # it too: at P=1 and 10, 5 is scored by another set of warps than 0 and 1
+    # (which share each chunk's candidates) and 9 in the next chunk. The
+    # kernel writes H and b itself, H exactly symmetric. P=1 and 10 take a
+    # particle group of 16 lanes, P=30 one of 32, P=64 and 70 two and three
+    # groups of 32; B=7 and B=1001 take the 4-byte copies and a tile that
+    # ends inside the points.
     g = torch.Generator().manual_seed(p * b + k)
     src = torch.randn((b, 3), generator=g) * 5
     dirs = torch.nn.functional.normalize(torch.randn((b, k, 3), generator=g), dim=-1)
@@ -114,18 +121,47 @@ def test_point_moments_kernel(dev, p, b, k, ties):
     cand, cvalid = nn.pad_candidates(cand, cvalid, multiple=8)
     feat, bias = svn.correspondence_features(src, cand, cvalid)
     prep = nn.prepare_moments_point(feat, bias, cand, src, valid)
-    if ties:
-        prep.feat13[:, 1] = prep.feat13[:, 0]
-        prep.cand_t[:, 1] = prep.cand_t[:, 0] + 0.05
+    for j in [j for j in (1, 5, 9) if j < prep.feat13.shape[1]] if ties else []:
+        prep.feat13[:, j] = prep.feat13[:, 0]
+        prep.cand_t[:, j] = prep.cand_t[:, 0] + 0.05 * j
     before = nn.point_moments.launches
     h_k, b_k = nn.point_moments(params.contiguous(), prep, 3.0)
     torch.cuda.synchronize()
     assert nn.point_moments.launches == before + 1
+    assert h_k.shape == (p, 6, 6) and b_k.shape == (p, 6)
     h_p, b_p = nn.point_moments_plain(params, prep, 3.0)
     torch.testing.assert_close(h_k, h_p, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(b_k, b_p, rtol=1e-4, atol=1e-3)
+    assert torch.equal(h_k, h_k.transpose(1, 2))
     h_k2, b_k2 = nn.point_moments(params.contiguous(), prep, 3.0)
     assert torch.equal(h_k, h_k2) and torch.equal(b_k, b_k2)
+
+
+def test_point_moments_launches_its_two_kernels_and_nothing_else(dev):
+    # the kernel pass and the tile sum that writes H and b: no host-side
+    # assembly of the system after them
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator().manual_seed(9)
+    b, k, p = 512, 16, 10
+    src = torch.randn((b, 3), generator=g) * 5
+    cand = src[:, None, :] + torch.randn((b, k, 3), generator=g)
+    cvalid = torch.rand((b, k), generator=g) > 0.1
+    params = torch.cat([torch.eye(3).reshape(1, 9).repeat(p, 1), torch.zeros((p, 3))], -1)
+    src, cand, cvalid, params = (x.to(dev) for x in (src, cand, cvalid, params))
+    feat, bias = svn.correspondence_features(src, cand, cvalid)
+    prep = nn.prepare_moments_point(feat, bias, cand, src, torch.ones(b, dtype=torch.bool,
+                                                                      device=dev))
+    nn.point_moments(params, prep, 3.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        nn.point_moments(params, prep, 3.0)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 2, names
+    assert any("point_moments_kernel" in n for n in names), names
+    assert any("point_system_kernel" in n for n in names), names
 
 
 @pytest.mark.parametrize("ties", [False, True])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Iterations per frame of chip_smoke.py's main and GEODE-Alpha paths on one
-NVIDIA GPU with the plain PyTorch versions of B2 and B3 in place of their
-CUDA kernels, beside the kernels' own run.
+NVIDIA GPU with the plain PyTorch versions of B2, B3 and B4 in place of
+their CUDA kernels, beside the kernels' own run.
 
     python3 tools/torch_iterations_plain.py
 
@@ -54,14 +54,16 @@ def main() -> int:
     frames = [(times[i], scans[i], None, None) for i in range(n)]
     gframes = [(gtimes[i], gscans[i], gimu[i], None) for i in range(n)]
 
-    kernel_b3 = stein.stein_update
-    for variant in ("kernels", "plain B2 and B3"):
+    kernel_b3, moments = stein.stein_update, dict(nn.MOMENTS)
+    for variant in ("kernels", "plain B2, B3 and B4"):
         if variant != "kernels":
             nn.MOMENTS[nn.PlanePrep] = (nn.plane_moments_plain, nn.plane_moments_plain)
+            nn.MOMENTS[nn.PointPrep] = (nn.point_moments_plain, nn.point_moments_plain)
             stein.stein_update = stein.stein_update_plain
         run(f"main path, {variant}", cfg, frames, rots, trans)
         run(f"geode path, {variant}", gcfg, gframes, grots, gtrans)
     stein.stein_update = kernel_b3
+    nn.MOMENTS.update(moments)
     return 0
 
 

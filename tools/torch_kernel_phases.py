@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time goes inside the port's B2 and B3 kernels, on one NVIDIA GPU.
+"""Where the time goes inside the port's B2, B3 and B4 kernels, on one NVIDIA GPU.
 
     python3 tools/torch_kernel_phases.py
 
-Copies `svnicp_tpu_torch/csrc/stein.cu` and `plane_moments.cu` into
+Copies `svnicp_tpu_torch/csrc/stein.cu`, `plane_moments.cu` and
+`point_moments.cu` into
 `build/kernel_phases/`, inserts a `clock64()` stamp at each phase boundary
 (thread 0 of block 0; every stamp but the last follows a block barrier, so
 it marks when the whole block finished the phase before), builds the copies
 with the port's nvcc flags and runs them on chip_smoke.py's operands: B3 at
 P=10 and P=64 (random SPD ensembles), B2 at the main path's shapes (P=64,
-B=4096, K=32, the synthetic tie operands). Prints the cycles of each phase
+B=4096, K=32, the synthetic tie operands), B4 at the GEODE-Alpha path's
+shapes (P=10, B=4096, K=104) and configs/subt_mrs.yaml's (P=30, B=8192,
+K=104), on the same synthetic operands. Prints the cycles of each phase
 (median over 50 launches) and the kernel's device time from torch.profiler,
 with the card's SM clock and power limit. The instrumented copies are
 measurement aids only; the port never loads them. Fails when an anchor is
@@ -56,6 +59,15 @@ PHASES = {
         ("scores, minima", "  // moments: over the lane's", True),
         ("moments, warp sums", "  for (int e = threadIdx.x; e < kMom * kGroup; e += kThreads) {", True),
         ("tile partials", "      partial[(static_cast<long long>(tile) * kMom + v) * P + p0 + q] = s;\n"
+                          "    }\n  }\n", False),
+    ],
+    "point_moments.cu": [
+        ("start", "  const bool live_p = p < P;\n", False),
+        ("first chunk arrives", "    // the slice's candidates of the chunk", True, "ch == 0"),
+        ("scores, minima", "  __syncthreads();  // the hand-over and the warp sums below reuse the stage buffers\n",
+         False),
+        ("hand-over, moments, warp sums", "  for (int e = threadIdx.x; e < kMom * G; e += kThreads) {", True),
+        ("tile partials", "      partial[(static_cast<long long>(tile) * kMom + v) * P + pq] = s;\n"
                           "    }\n  }\n", False),
     ],
 }
@@ -155,6 +167,26 @@ def main() -> int:
     print(f"B2 P={p} B={nb} K={k}: device {ms * 1e3:.2f} us + system pass "
           f"{ms_sys * 1e3:.2f} us; cycles per phase (block 0): "
           + ", ".join(f"{n} {c:.0f}" for n, c in ph) + f"; sum {sum(c for _, c in ph):.0f}")
+
+    point = build("point_moments.cu")
+    gcfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "geode_alpha.yaml"))
+    for p, nb in ((10, 4096), (30, 8192)):
+        params, prep = cs.tied_moments_inputs(gcfg.icp, p, nb, 100, dev, seed=15)
+        k = prep.feat13.shape[1]
+        partial = torch.empty((-(-nb // 16), 16, p), device=dev)
+        h, bvec = torch.empty((p, 6, 6), device=dev), torch.empty((p, 6), device=dev)
+
+        def launch_b4():
+            return point.svn_point_moments(*(ptr(x) for x in (params, *prep)), p, k, nb,
+                                           float(gcfg.icp.max_dist), ptr(partial), ptr(h),
+                                           ptr(bvec), stream(params))
+
+        ph = phases(point, "point_moments.cu", launch_b4)
+        ms = cs.device_ms(launch_b4, 100, ["point_moments_kernel"])
+        ms_sys = cs.device_ms(launch_b4, 100, ["point_system_kernel"])
+        print(f"B4 P={p} B={nb} K={k}: device {ms * 1e3:.2f} us + system pass "
+              f"{ms_sys * 1e3:.2f} us; cycles per phase (block 0): "
+              + ", ".join(f"{n} {c:.0f}" for n, c in ph) + f"; sum {sum(c for _, c in ph):.0f}")
     return 0
 
 
