@@ -7,7 +7,7 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
 1. device: the card's name, `nvidia-smi` name and power limit, TF32 off;
 2. build: nvcc builds the five CUDA kernels (sm_90a) and g++ the host
    staging library, from the sources in this checkout; every kernel's
-   ptxas registers and spills are printed, and B2, B3 and B4 must not spill;
+   ptxas registers and spills are printed, and none may spill;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    same inputs on the card, at the shapes of the three paths below and at
    ragged shapes with exact ties (B3 also at P=300 and 512), repeats
@@ -18,8 +18,10 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    frames of the bench sequence (32,000-point scans of
    SyntheticWorld(extent=80, n_walls=24, n_boxes=16, seed=7)), with each
    kernel's launch count checked against what the path must make, every
-   frame aligned and ATE against ground truth under 0.2 m; then the cost of
-   the host-side early-stop check per iteration;
+   frame aligned and ATE against ground truth under the limit taken from the
+   JAX package's own run (PLANE_ATE_LIMIT below), its iterations per frame
+   beside that run's; then the cost of the host-side early-stop check per
+   iteration;
 5. GEODE-Alpha path: `LIOPipeline(configs/geode_alpha.yaml)` (the ESKF
    with IMU propagation and the point-to-point residual, kernels B1, B4,
    B3) on 3 warm-up + 20 timed frames of the JAX package's `cli demo`
@@ -38,7 +40,8 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
 Each path's launch counts are set to 0 just before it and read just after.
 Each path prints its iterations per frame beside EARLIER_ITERS (those of
 the first B2 and B3 kernels) and names the frames that moved; the SVGD
-path, which runs neither, must repeat its count and ATE exactly.
+path, which runs neither, must repeat its count and the ATE of its B1 and
+B5 (SVGD_ATE) exactly.
 With `--profile`, a torch.profiler trace of 5 more frames of each path
 (device-busy share, kernels by device time).
 The last lines are the kernel table as JSON (`launches` summed over the
@@ -79,6 +82,12 @@ GEODE_ATE_LIMIT = max(1.5 * GEODE_JAX_ATE, GEODE_JAX_ATE + 0.05)
 # on the host it runs on.)
 GEODE_JAX_ITERS = [0, 26, 15, 23, 17, 19, 22, 20, 25, 16, 18, 21, 18, 20, 13, 23, 19, 24,
                    23, 12, 25, 100, 20]
+# The same for the main path (tests/test_torch_plane_reference.py):
+# configs/tpu_plane.yaml on bench.py's 23 frames.
+PLANE_JAX_ATE = 0.015401806072672613
+PLANE_ATE_LIMIT = max(1.5 * PLANE_JAX_ATE, PLANE_JAX_ATE + 0.05)
+PLANE_JAX_ITERS = [0, 8, 100, 25, 2, 4, 17, 80, 39, 14, 8, 13, 13, 13, 8, 17, 14, 27, 18,
+                   3, 17, 14, 11]
 # The same for the SVGD path (tests/test_torch_svgd_reference.py), whose
 # frames the JAX run aligned as listed.
 SVGD_JAX_ATE = 0.7128996366642155
@@ -88,7 +97,8 @@ SVGD_JAX_ALIGN_OK = [True] * 23
 # block per ensemble with a bisection median; 8 particles per block), on
 # the H100: a kernel that sums in another order may move a frame whose stop
 # statistic sits at its threshold, so moved frames are printed, not refused.
-# The SVGD path runs neither kernel and must repeat its count exactly.
+# The SVGD path runs neither kernel and must repeat its count exactly (every
+# frame at the cap).
 EARLIER_ITERS = {
     "main": [0, 26, 51, 67, 100, 49, 100, 8, 34, 5, 39, 25, 17, 6, 21, 13, 4, 12,
              11, 5, 13, 7, 18],
@@ -96,9 +106,13 @@ EARLIER_ITERS = {
               14, 19, 20, 19, 18],
     "svgd": [0] + [30] * 22,
 }
-SVGD_ATE = 0.6338   # the SVGD path's ATE [m] at 4 decimals, to repeat exactly
+# The SVGD path's ATE [m] at 4 decimals with the B1 and B5 kernels of this
+# tree, to repeat exactly: its trajectory follows a few near-tie picks of
+# stage 1, so another rounding of B1's score moves it (0.54-1.00 m under
+# the plain B1 and two kernels, tools/torch_iterations_plain.py).
+SVGD_ATE = 1.0009
 # kernels whose ptxas report must show no spill
-NO_SPILL = ("stein.cu", "plane_moments.cu", "point_moments.cu")
+NO_SPILL = ("stein.cu", "plane_moments.cu", "point_moments.cu", "nn_match.cu", "stage1.cu")
 
 
 def nvidia_smi_line() -> str:
@@ -165,7 +179,7 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def bench_sequence(n_frames: int):
+def bench_sequence(n_frames: int, n_points: int = 32000):
     """The bench.py recipe: scans, ground-truth rotations and translations."""
     from svnicp_tpu_torch.io import datasets
 
@@ -173,7 +187,7 @@ def bench_sequence(n_frames: int):
     times, rots, trans = datasets.synthetic_trajectory(n_frames, dt=0.1,
                                                        speed=2.0, seed=7)
     rng = np.random.default_rng(7)
-    scans = [world.scan_at(rng, rots[i], trans[i], n_points=32000, max_range=75.0)
+    scans = [world.scan_at(rng, rots[i], trans[i], n_points=n_points, max_range=75.0)
              for i in range(n_frames)]
     return times, rots, trans, scans
 
@@ -741,6 +755,15 @@ def report_path(name, pipe, dt, launches, rots, trans, smi, earlier,
     return ate
 
 
+def print_jax_iters(name, jax_iters, pipe) -> None:
+    """Print the JAX package's float32 iterations per frame beside the port's
+    and the frames where they differ (rounding moves whole frames; not a bound)."""
+    moved = [(i, a, o.icp_iterations) for i, (a, o) in enumerate(zip(jax_iters, pipe.outputs))
+             if a != o.icp_iterations]
+    print(f"{name}: the JAX package's float32 run took {sum(jax_iters)} iterations "
+          f"{jax_iters}; frames that differ from it (frame, JAX, port): {moved}")
+
+
 def profile_frames(cfg, frames, first: int, count: int) -> None:
     """torch.profiler over `count` frames of a fresh pipeline (after `first`
     warm-up frames): device-busy share of the window and kernels by time."""
@@ -861,8 +884,9 @@ def main() -> int:
     def time_stage1(s_, sv_, t_, tv_, k_):
         n_src, n_tgt = int(sv_.sum()), int(tv_.sum())
         call = cuda_time_ms(lambda: nn.bucketed_candidates(s_, t_, sv_, tv_, k_), 20)
+        # both launches: the target prep and the search
         ms = device_ms(lambda: nn.bucketed_candidates(s_, t_, sv_, tv_, k_), 20,
-                       ["stage1_kernel"])
+                       ["stage1_prep_kernel", "stage1_kernel"])
         plain = device_ms(lambda: nn.bucketed_candidates_plain(s_, t_, sv_, tv_, k_), 5)
         b_ms, b_by = bound_ms(8.0 * n_src * n_tgt,
                               s_.numel() * 4 + sv_.numel() + t_.numel() * 4 + tv_.numel()
@@ -969,7 +993,10 @@ def main() -> int:
     iters = sum(o.icp_iterations for o in pipe.outputs)
     assert launches["B2"] == iters == launches["B3"], (launches, iters)
     assert launches["B4"] == launches["B5"] == 0, launches
-    assert ate < 0.2, ate
+    print_jax_iters("main path", PLANE_JAX_ITERS, pipe)
+    print(f"main path: ATE limit {PLANE_ATE_LIMIT:.4f} m (the JAX package's float32 "
+          f"run: {PLANE_JAX_ATE:.4f} m)")
+    assert ate < PLANE_ATE_LIMIT, (ate, PLANE_ATE_LIMIT)
     early_stop_cost(cfg, src, sv, tgt, tv, dev)
     if args.profile:
         profile_frames(cfg, frames, WARMUP, 5)
@@ -982,12 +1009,7 @@ def main() -> int:
                        glaunches, grots, gtrans, smi, EARLIER_ITERS["geode"])
     giters = sum(o.icp_iterations for o in gpipe.outputs)
     gains = [float(o.kf_gain.abs().max()) for o in gpipe.outputs]
-    jax_moved = [(i, a, b) for i, (a, b) in
-                 enumerate(zip(GEODE_JAX_ITERS, [o.icp_iterations for o in gpipe.outputs]))
-                 if a != b]
-    print(f"geode path: the JAX package's float32 run took {sum(GEODE_JAX_ITERS)} "
-          f"iterations {GEODE_JAX_ITERS}; frames that differ from it (frame, JAX, "
-          f"port): {jax_moved}")
+    print_jax_iters("geode path", GEODE_JAX_ITERS, gpipe)
     print(f"geode path: max |Kalman gain| per frame {[f'{x:.3g}' for x in gains]}; "
           f"ATE limit {GEODE_ATE_LIMIT:.4f} m (the JAX package's float32 run: "
           f"{GEODE_JAX_ATE:.4f} m)")
@@ -1012,7 +1034,7 @@ def main() -> int:
     assert vlaunches["B5"] == viters > 0, (vlaunches, viters)
     assert vlaunches["B2"] == vlaunches["B3"] == vlaunches["B4"] == 0, vlaunches
     assert vate < SVGD_ATE_LIMIT, (vate, SVGD_ATE_LIMIT)
-    # B2 and B3 are off this path: it repeats the first kernels' run exactly
+    # B2 and B3 are off this path: it repeats its count and its B1 and B5's ATE
     assert [o.icp_iterations for o in vpipe.outputs] == EARLIER_ITERS["svgd"]
     assert round(vate, 4) == SVGD_ATE, vate
     if args.profile:

@@ -7,102 +7,95 @@
 // (|c|^2 - 2 <T_p s_b, c>, +inf at an invalid slot) and the mean of the
 // coordinates of the slots that tie at that minimum (the matched point).
 // Outputs: matched [3, P, B] and best [P, B]; the caller adds |T_p s_b|^2
-// for the squared distance. A slot scoring +inf ties with the +inf start
-// value, exactly as the plain version's `score == best` does, so a point with
-// no valid candidate averages its (finite) slot coordinates and keeps
-// best = +inf, which the caller's gate rejects: no inf - inf anywhere.
+// for the squared distance and applies its gate and point mask. A slot
+// scoring +inf ties with the +inf start value, exactly as the plain
+// version's `score == best` does, so a point with no valid candidate
+// averages its (finite) slot coordinates and keeps best = +inf, which the
+// caller's gate rejects: no inf - inf anywhere.
 //
 // What bounds it: the function needs each slot's 3 coordinates and |c|^2
-// once (6.6 MB at the SVGD path's shapes, P=30, B=4096, K=100) and writes
-// 4 floats per (particle, point) (2 MB): ~2.6 us of bytes at 3.35 TB/s,
-// against ~1e8 operations in the form |c|^2 - 2 c.(T s) (~1.5 us of FP32).
-// This first kernel instead reads B4's prepared operands, 13 feature floats
-// plus 3 coordinates per slot (27 MB), and does 13 FMAs per (particle,
-// slot): points sit on threads, so every load is coalesced along B, and a
-// block serves kPart particles held in shared memory, so each slot's 16
-// floats are read once per group of kPart particles; the running minimum,
-// tie count and coordinate sums of those particles stay in registers.
-// Two particles per block: more read the slots fewer times but leave fewer
-// threads to hide the load latency (at P=30, B=4096: 480 blocks).
-// Reading only coordinates and staging a point tile's candidates in shared
-// memory across all particles is the later, faster design.
+// once and writes 4 floats per (particle, point); in the operand form it
+// reads (B4's prepared operands, 13 feature floats plus 3 coordinates a
+// slot) those 16 floats cross device memory once per launch for P <= 32,
+// and the 13 FMAs per (particle, point, slot), the minimum and the tie pass
+// are issued at up to one warp instruction per cycle and scheduler. The
+// design is B4's match half, point_match.cuh's score loop: a block owns a
+// tile of 16 points and serves a group of up to 32 particles (G = 16 up to
+// P=16, else 32; grid y takes more groups) from one copy of the tile's
+// operands in shared memory. Its epilogue writes each lane's 4 points as
+// one float4 of each output row along B.
 
-#include "common.cuh"
+#include <stdint.h>
+
+#include "point_match.cuh"
 
 namespace {
 
-constexpr int kPts = 128;   // source points per block (one per thread)
-constexpr int kPart = 2;    // particles per block
-static_assert(kPart * 13 <= kPts, "one thread loads each particle parameter");
-
-__global__ void __launch_bounds__(kPts)
+template <int G>
+__global__ void __launch_bounds__(kThreads)
 nn_match_kernel(const float* __restrict__ params,   // [P,12]
                 const float* __restrict__ feat13,   // [13,K,B]
                 const float* __restrict__ cand_t,   // [3,K,B]
-                int P, int K, int B,
+                int P, int K, int B, int vec,
                 float* __restrict__ matched,        // [3,P,B]
                 float* __restrict__ best_out) {     // [P,B]
-  __shared__ float prm[kPart][13];
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x * kPts + tid;
-  const int p0 = blockIdx.y * kPart;
-  if (tid < kPart * 13) {
-    const int q = tid / 13, c = tid - q * 13;
-    const int p = p0 + q;
-    prm[q][c] = p < P ? (c < 12 ? params[p * 12 + c] : 1.f) : 0.f;
-  }
-  __syncthreads();
-  if (b >= B) return;
+  using S = Shape<G>;
+  __shared__ __align__(16) float smem[kStages * kStage];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slice = warp / S::kPtWarps, pw = warp % S::kPtWarps;
+  const int b0 = blockIdx.x * kTile;
+  const int p = blockIdx.y * G + lane % G;                  // the lane's particle
+  const int t0 = pw * S::kWarpPts + lane / G * kLanePts;   // its first point in the tile
+  const bool live_p = p < P;
 
-  float best[kPart], cnt[kPart], qx[kPart], qy[kPart], qz[kPart];
+  // params13 = [vec(R), t, 1]; a lane past P scores with 0, ..., 0, 1
+  float prm[13];
 #pragma unroll
-  for (int q = 0; q < kPart; ++q) {
-    best[q] = INFINITY;
-    cnt[q] = 0.f;
-    qx[q] = 0.f;
-    qy[q] = 0.f;
-    qz[q] = 0.f;
-  }
-  const long long kb = static_cast<long long>(K) * B;
-  for (int k = 0; k < K; ++k) {
-    const long long off = static_cast<long long>(k) * B + b;
-    float f[13];
+  for (int c = 0; c < 13; ++c) prm[c] = c == 12 ? 1.f : live_p ? params[p * 12 + c] : 0.f;
+
+  match_tile<G>(smem, prm, feat13, cand_t, K, B, b0, vec != 0, slice, pw, lane, t0,
+                [&](const Minima& mn) {
+    const int b = b0 + t0;
+    if (!live_p || b >= B) return;
+    float q[3][kLanePts];
 #pragma unroll
-    for (int c = 0; c < 13; ++c) f[c] = feat13[c * kb + off];
-    const float cx = cand_t[off], cy = cand_t[kb + off], cz = cand_t[2 * kb + off];
+    for (int j = 0; j < kLanePts; ++j) {
+      const float inv = 1.f / fmaxf(mn.cnt[j], 1.f);
+      q[0][j] = mn.x[j] * inv;
+      q[1][j] = mn.y[j] * inv;
+      q[2][j] = mn.z[j] * inv;
+    }
+    const long long pb = static_cast<long long>(P) * B;
+    const long long o = static_cast<long long>(p) * B + b;
+    if (vec) {  // B % 4 == 0, so b (a multiple of 4) .. b + 3 are all real
 #pragma unroll
-    for (int q = 0; q < kPart; ++q) {
-      float s = 0.f;
+      for (int c = 0; c < 3; ++c) {
+        *reinterpret_cast<float4*>(matched + c * pb + o) =
+            make_float4(q[c][0], q[c][1], q[c][2], q[c][3]);
+      }
+      *reinterpret_cast<float4*>(best_out + o) =
+          make_float4(mn.best[0], mn.best[1], mn.best[2], mn.best[3]);
+    } else {
 #pragma unroll
-      for (int c = 0; c < 13; ++c) s += prm[q][c] * f[c];
-      if (s < best[q]) {
-        best[q] = s;
-        cnt[q] = 1.f;
-        qx[q] = cx;
-        qy[q] = cy;
-        qz[q] = cz;
-      } else if (s == best[q]) {
-        cnt[q] += 1.f;
-        qx[q] += cx;
-        qy[q] += cy;
-        qz[q] += cz;
+      for (int j = 0; j < kLanePts; ++j) {
+        if (b + j < B) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) matched[c * pb + o + j] = q[c][j];
+          best_out[o + j] = mn.best[j];
+        }
       }
     }
-  }
+  });
+}
 
-  const long long pb = static_cast<long long>(P) * B;
-#pragma unroll
-  for (int q = 0; q < kPart; ++q) {
-    const int p = p0 + q;
-    if (p < P) {
-      const long long o = static_cast<long long>(p) * B + b;
-      const float inv = 1.f / fmaxf(cnt[q], 1.f);
-      matched[o] = qx[q] * inv;
-      matched[pb + o] = qy[q] * inv;
-      matched[2 * pb + o] = qz[q] * inv;
-      best_out[o] = best[q];
-    }
-  }
+template <int G>
+cudaError_t launch_match(const float* params, const float* feat13, const float* cand_t,
+                         int P, int K, int B, int vec, float* matched, float* best,
+                         cudaStream_t st) {
+  const dim3 grid((B + kTile - 1) / kTile, (P + G - 1) / G);
+  SVN_LAUNCH(nn_match_kernel<G>, grid, kThreads, 0, st)(params, feat13, cand_t, P, K, B,
+                                                        vec, matched, best);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -112,12 +105,16 @@ nn_match_kernel(const float* __restrict__ params,   // [P,12]
 SVN_EXPORT int svn_nn_match(const void* params, const void* feat13, const void* cand_t,
                             int P, int K, int B, void* matched, void* best, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (P > 0 && B > 0) {
-    const dim3 grid((B + kPts - 1) / kPts, (P + kPart - 1) / kPart);
-    SVN_LAUNCH(nn_match_kernel, grid, kPts, 0, st)(
-        static_cast<const float*>(params), static_cast<const float*>(feat13),
-        static_cast<const float*>(cand_t), P, K, B, static_cast<float*>(matched),
-        static_cast<float*>(best));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (P <= 0 || B <= 0) return static_cast<int>(cudaGetLastError());
+  const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
+  const int vec = B % 4 == 0 && aligned(feat13) && aligned(cand_t) && aligned(matched) &&
+                  aligned(best);
+  const auto* prm = static_cast<const float*>(params);
+  const auto* f13 = static_cast<const float*>(feat13);
+  const auto* cnd = static_cast<const float*>(cand_t);
+  auto* m = static_cast<float*>(matched);
+  auto* b = static_cast<float*>(best);
+  const cudaError_t err = P <= 16 ? launch_match<16>(prm, f13, cnd, P, K, B, vec, m, b, st)
+                                  : launch_match<32>(prm, f13, cnd, P, K, B, vec, m, b, st);
+  return static_cast<int>(err);
 }

@@ -28,26 +28,12 @@
 // the minimum and tie pass after them, which are issued at up to one warp
 // instruction per cycle and scheduler (at subt_mrs's P=30, B=8192 about as
 // long as the bytes). The design:
-//   - a block owns a tile of 16 points and serves a group of up to 32
-//     particles from one copy of the tile's operands in shared memory, so
-//     the operands cross device memory once per launch for P <= 32;
-//   - the tile is staged in chunks of 8 candidates with cp.async, two
-//     chunks in flight while one is scored (four buffers, one barrier a
-//     chunk); the source points and mask come with the first chunk;
-//   - a lane holds one particle and 4 points, whose operands are one float4
-//     per candidate and row that the lanes of a point group read at once
-//     (a broadcast). The particle group has G = 16 or 32 lanes, fixed at
-//     compile time: 16 up to P=16, else 32 (grid y takes more groups of 32
-//     above that), so P=10 and P=30 leave 6 and 2 of G lanes idle and a
-//     warp holds 32/G point groups;
-//   - a block has 4 warps. At G = 32 they cover the tile's 16 points; at
-//     G = 16 two warps do, and the two such pairs of warps share each
-//     chunk's candidates and hand their running minima over at the end, so
-//     that P=10 runs as many warps as P=30;
-//   - a chunk's scores stay in registers: one min over them, then one
-//     equality pass adds the ties as hit * x by an FMA, in candidate order
-//     within a warp (B2's scheme, with the three coordinates in place of
-//     n.q);
+//   - the score loop is point_match.cuh's, shared with B5: a block owns a
+//     tile of 16 points and serves a group of up to 32 particles (G = 16
+//     up to P=16, else 32; grid y takes more groups) from one copy of the
+//     tile's operands, staged in chunks of 8 candidates with cp.async, a
+//     lane holding one particle and 4 points, chunk-wise minima with an
+//     FMA tie pass; the source points and mask come with the first chunk;
 //   - the 16 sums: over a lane's 4 points in registers, over the warp's
 //     point groups by shuffles, over the block's warps in shared memory,
 //     each in a fixed order;
@@ -55,84 +41,11 @@
 
 #include <stdint.h>
 
-#include "common.cuh"
+#include "point_match.cuh"
 
 namespace {
 
-constexpr int kTile = 16;              // source points per block
-constexpr int kLanePts = 4;            // points per lane: one float4
-constexpr int kChunk = 8;              // candidates per stage
-constexpr int kRows = 16 * kChunk;     // 13 feature rows + 3 coordinates, per candidate
-constexpr int kStage = kRows * kTile;  // floats per stage
-constexpr int kAhead = 2;              // chunks in flight while one is scored
-constexpr int kStages = kAhead + 2;    // + the chunk scored + the one a warp may still read
-constexpr int kMom = 16;               // distinct sums of H and b (see above)
-constexpr int kWarps = 4;              // warps per block
-constexpr int kThreads = 32 * kWarps;
-
-// The lanes of a block whose particle group has G particles: a lane holds
-// one particle and 4 points, a warp covers 32 / G groups of 4 points, and
-// the tile's points take kPtWarps warps; the block's 4 warps are kSlices
-// such sets, which share each chunk's candidates (kSliceK each).
-template <int G>
-struct Shape {
-  static constexpr int kWarpPts = 32 / G * kLanePts;   // points per warp
-  static constexpr int kPtWarps = kTile / kWarpPts;
-  static constexpr int kSlices = kWarps / kPtWarps;
-  static constexpr int kSliceK = kChunk / kSlices;
-  static constexpr int kState = 5 * kLanePts;          // running minima: best, count, x, y, z
-  static constexpr int kHand = (kSlices - 1) * kState * kPtWarps * 32;  // minima handed over
-  static_assert(kTile % kWarpPts == 0 && kWarps % kPtWarps == 0 && kChunk % kSlices == 0,
-                "a tile holds whole warps, a block whole slices, a chunk whole slices");
-  static_assert(kHand + kPtWarps * kMom * G <= kStages * kStage,
-                "the hand-over and the warp sums reuse the stage buffers");
-};
-
-// Copy candidates [k0, k0 + kChunk) of the tile's points b0.. into `st`:
-// row c * kChunk + kk (c < 13: feat13 row c, else cand_t row c - 13), kTile
-// floats each. Slots past B are zero-filled; slots past K too, but for a
-// NaN bias (the |c|^2 row), so their score is NaN: no minimum, no tie.
-#define kNaN __int_as_float(0x7FC00000)
-__device__ __forceinline__ void load_chunk(float* st, const float* __restrict__ feat13,
-                                           const float* __restrict__ cand_t, int K, int B,
-                                           int k0, int b0, bool vec) {
-  const long long kb = static_cast<long long>(K) * B;
-  if (vec) {  // B % 4 == 0: four 16-byte copies a thread. Thread (warp w, lane l)
-              // copies candidate k0 + l / 4 of points b0 + 4 (l % 4) .. + 3 in rows
-              // w, w + 4, w + 8 and w + 12: one address and test a chunk, not a copy
-    static_assert(kTile == 16 && kChunk == 8 && kThreads == 128, "the copy map below");
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, kk = lane >> 2, seg = lane & 3;
-    const int k = k0 + kk, b = b0 + seg * 4;
-    const bool ok = k < K && b < B;
-    const long long off = ok ? static_cast<long long>(k) * B + b : 0;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int c = w + 4 * n;
-      float* dst = st + (c * kChunk + kk) * kTile + seg * 4;
-      const float* src = c < 13 ? feat13 + c * kb + off : cand_t + (c - 13) * kb + off;
-      if (c == 12 && k >= K) {
-        *reinterpret_cast<float4*>(dst) = make_float4(kNaN, kNaN, kNaN, kNaN);
-      } else {
-        cp_async16(dst, src, ok);
-      }
-    }
-  } else {  // kept rolled: unrolled, its addresses hoisted out of the chunk loop spill
-#pragma unroll 1
-    for (int e = threadIdx.x; e < kRows * kTile; e += kThreads) {
-      const int row = e / kTile, t = e % kTile;
-      const int c = row / kChunk, k = k0 + (row - c * kChunk), b = b0 + t;
-      const bool ok = k < K && b < B;
-      const long long off = static_cast<long long>(k) * B + b;
-      const float* src = !ok ? feat13 : c < 13 ? feat13 + c * kb + off : cand_t + (c - 13) * kb + off;
-      if (c == 12 && k >= K) {
-        st[row * kTile + t] = kNaN;
-      } else {
-        cp_async4(st + row * kTile + t, src, ok);
-      }
-    }
-  }
-  cp_async_commit();
-}
+constexpr int kMom = 16;  // distinct sums of H and b (see above)
 
 template <int G>
 __global__ void __launch_bounds__(kThreads)
@@ -144,7 +57,8 @@ point_moments_kernel(const float* __restrict__ params,   // [P,12]
                      int P, int K, int B, float max_dist, int vec,
                      float* __restrict__ partial) {      // [n_tiles,16,P]
   using S = Shape<G>;
-  constexpr int kSliceK = S::kSliceK;
+  static_assert(S::kHand + S::kPtWarps * kMom * G <= kStages * kStage,
+                "the hand-over and the warp sums reuse the stage buffers");
   __shared__ __align__(16) float smem[kStages * kStage];
   __shared__ float pts[4][kTile];  // source [3], mask
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -158,15 +72,6 @@ point_moments_kernel(const float* __restrict__ params,   // [P,12]
   float prm[13];
 #pragma unroll
   for (int c = 0; c < 13; ++c) prm[c] = c == 12 ? 1.f : live_p ? params[p * 12 + c] : 0.f;
-  float best[kLanePts], cnt[kLanePts], qx[kLanePts], qy[kLanePts], qz[kLanePts];
-#pragma unroll
-  for (int j = 0; j < kLanePts; ++j) {
-    best[j] = INFINITY;
-    cnt[j] = 0.f;
-    qx[j] = 0.f;
-    qy[j] = 0.f;
-    qz[j] = 0.f;
-  }
 
   // the tile's source points and mask, in the first copy group
   for (int e = threadIdx.x; e < 4 * kTile; e += kThreads) {
@@ -174,124 +79,9 @@ point_moments_kernel(const float* __restrict__ params,   // [P,12]
     const float* src = b >= B ? src_t : row < 3 ? src_t + row * B + b : vmask + b;
     cp_async4(&pts[row][t], src, b < B);
   }
-  // one copy group per chunk (an empty one past the last chunk), so waiting
-  // for all but the newest kAhead groups waits for chunk ch. The copy of
-  // chunk ch + kAhead goes to the buffer of chunk ch - 2, which every warp
-  // left before the barrier of chunk ch - 1: a chunk needs one barrier.
-  const int n_chunks = (K + kChunk - 1) / kChunk;
-#pragma unroll
-  for (int a = 0; a < kAhead; ++a) {
-    if (a < n_chunks) {
-      load_chunk(smem + a * kStage, feat13, cand_t, K, B, a * kChunk, b0, vec != 0);
-    } else {
-      cp_async_commit();
-    }
-  }
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int next = ch + kAhead;
-    if (next < n_chunks) {
-      load_chunk(smem + (next % kStages) * kStage, feat13, cand_t, K, B, next * kChunk, b0,
-                 vec != 0);
-    } else {
-      cp_async_commit();
-    }
-    cp_async_wait<kAhead>();
-    __syncthreads();
-    // the slice's candidates of the chunk, slice * kSliceK + i
-    const float* st = smem + (ch % kStages) * kStage + slice * kSliceK * kTile + t0;
-    float sc[kSliceK][kLanePts];
-#pragma unroll
-    for (int i = 0; i < kSliceK; ++i) {
-#pragma unroll
-      for (int j = 0; j < kLanePts; ++j) sc[i][j] = 0.f;
-#pragma unroll
-      for (int c = 0; c < 13; ++c) {
-        const float4 f = *reinterpret_cast<const float4*>(st + (c * kChunk + i) * kTile);
-        sc[i][0] += prm[c] * f.x;
-        sc[i][1] += prm[c] * f.y;
-        sc[i][2] += prm[c] * f.z;
-        sc[i][3] += prm[c] * f.w;
-      }
-    }
-    // a smaller minimum restarts the tie count and coordinate sums; then
-    // every score equal to the minimum adds to them, in candidate order: the
-    // same set and the same order of sums as a running minimum over k. +inf
-    // == +inf is a tie, as in the plain version: a point whose slots are all
-    // invalid averages them and is gated out below.
-#pragma unroll
-    for (int j = 0; j < kLanePts; ++j) {
-      float cmin = sc[0][j];
-#pragma unroll
-      for (int i = 1; i < kSliceK; ++i) cmin = fminf(cmin, sc[i][j]);
-      const bool lower = cmin < best[j];
-      best[j] = lower ? cmin : best[j];
-      cnt[j] = lower ? 0.f : cnt[j];
-      qx[j] = lower ? 0.f : qx[j];
-      qy[j] = lower ? 0.f : qy[j];
-      qz[j] = lower ? 0.f : qz[j];
-    }
-#pragma unroll
-    for (int i = 0; i < kSliceK; ++i) {
-      const float4 x4 = *reinterpret_cast<const float4*>(st + (13 * kChunk + i) * kTile);
-      const float4 y4 = *reinterpret_cast<const float4*>(st + (14 * kChunk + i) * kTile);
-      const float4 z4 = *reinterpret_cast<const float4*>(st + (15 * kChunk + i) * kTile);
-      const float cx[4] = {x4.x, x4.y, x4.z, x4.w};
-      const float cy[4] = {y4.x, y4.y, y4.z, y4.w};
-      const float cz[4] = {z4.x, z4.y, z4.z, z4.w};
-#pragma unroll
-      for (int j = 0; j < kLanePts; ++j) {
-        // hit * x as the plain version sums it: fma(1, x, q) rounds as q + x
-        const float hit = sc[i][j] == best[j] ? 1.f : 0.f;
-        cnt[j] += hit;
-        qx[j] = fmaf(hit, cx[j], qx[j]);
-        qy[j] = fmaf(hit, cy[j], qy[j]);
-        qz[j] = fmaf(hit, cz[j], qz[j]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the hand-over and the warp sums below reuse the stage buffers
-
-  // slices 1.. hand their running minima to slice 0, which takes them in
-  // slice order: a smaller minimum replaces, an equal one adds its ties.
-  // (The set of ties is the plain version's; three or more tied across
-  // slices are summed in another order.)
-  constexpr int kLanes = S::kPtWarps * 32;
-  float* hand = smem;  // [kSlices - 1][kState][kLanes]
   float* red = smem + S::kHand;  // [kPtWarps][16][G]
-  const int li = pw * 32 + lane;
-  if (slice > 0) {
-    float* h = hand + (slice - 1) * S::kState * kLanes + li;
-#pragma unroll
-    for (int j = 0; j < kLanePts; ++j) {
-      h[(5 * j) * kLanes] = best[j];
-      h[(5 * j + 1) * kLanes] = cnt[j];
-      h[(5 * j + 2) * kLanes] = qx[j];
-      h[(5 * j + 3) * kLanes] = qy[j];
-      h[(5 * j + 4) * kLanes] = qz[j];
-    }
-  }
-  __syncthreads();
-  if (slice == 0) {
-    for (int sl = 1; sl < S::kSlices; ++sl) {
-      const float* h = hand + (sl - 1) * S::kState * kLanes + li;
-#pragma unroll
-      for (int j = 0; j < kLanePts; ++j) {
-        const float b1 = h[(5 * j) * kLanes];
-        if (b1 < best[j]) {
-          best[j] = b1;
-          cnt[j] = h[(5 * j + 1) * kLanes];
-          qx[j] = h[(5 * j + 2) * kLanes];
-          qy[j] = h[(5 * j + 3) * kLanes];
-          qz[j] = h[(5 * j + 4) * kLanes];
-        } else if (b1 == best[j]) {
-          cnt[j] += h[(5 * j + 1) * kLanes];
-          qx[j] += h[(5 * j + 2) * kLanes];
-          qy[j] += h[(5 * j + 3) * kLanes];
-          qz[j] += h[(5 * j + 4) * kLanes];
-        }
-      }
-    }
+  match_tile<G>(smem, prm, feat13, cand_t, K, B, b0, vec != 0, slice, pw, lane, t0,
+                [&](const Minima& mn) {
     // the 16 sums of the lane's particle over its 4 points. No branch: a
     // point past B (zero-filled) or a particle past P has w = 0 and every
     // other factor finite, so it adds exactly 0.
@@ -306,12 +96,12 @@ point_moments_kernel(const float* __restrict__ params,   // [P,12]
       const float x0 = prm[0] * s0 + prm[1] * s1 + prm[2] * s2 + prm[9];
       const float x1 = prm[3] * s0 + prm[4] * s1 + prm[5] * s2 + prm[10];
       const float x2 = prm[6] * s0 + prm[7] * s1 + prm[8] * s2 + prm[11];
-      const float d2 = fmaxf(best[j] + (x0 * x0 + x1 * x1 + x2 * x2), 0.f);
-      const bool gate = (d2 < max_dist) && (best[j] < 1e30f);
-      const float inv = 1.f / fmaxf(cnt[j], 1.f);
-      const float e0 = gate ? x0 - qx[j] * inv : 0.f;
-      const float e1 = gate ? x1 - qy[j] * inv : 0.f;
-      const float e2 = gate ? x2 - qz[j] * inv : 0.f;
+      const float d2 = fmaxf(mn.best[j] + (x0 * x0 + x1 * x1 + x2 * x2), 0.f);
+      const bool gate = (d2 < max_dist) && (mn.best[j] < 1e30f);
+      const float inv = 1.f / fmaxf(mn.cnt[j], 1.f);
+      const float e0 = gate ? x0 - mn.x[j] * inv : 0.f;
+      const float e1 = gate ? x1 - mn.y[j] * inv : 0.f;
+      const float e2 = gate ? x2 - mn.z[j] * inv : 0.f;
       const float en = sqrtf(e0 * e0 + e1 * e1 + e2 * e2);
       float w = max_dist / (max_dist + 3.f * en);
       w = w * w * vm;
@@ -349,7 +139,7 @@ point_moments_kernel(const float* __restrict__ params,   // [P,12]
 #pragma unroll
       for (int v = 0; v < kMom; ++v) red[(pw * kMom + v) * G + slot] = m[v];
     }
-  }
+  });
   __syncthreads();
   for (int e = threadIdx.x; e < kMom * G; e += kThreads) {
     const int v = e / G, q = e % G, pq = blockIdx.y * G + q;

@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every exported entry (pointers and the stream as void*)
 SIGNATURES = {
-    "stage1.cu": {"svn_stage1_candidates": [_P] * 4 + [_I] * 5 + [_P] * 3},
+    "stage1.cu": {"svn_stage1_candidates": [_P] * 4 + [_I] * 5 + [_P] * 4},
     "plane_moments.cu": {"svn_plane_moments": [_P] * 6 + [_I] * 3 + [_F] + [_P] * 4},
     "point_moments.cu": {"svn_point_moments": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 4},
     "stein.cu": {"svn_stein_update": [_P] * 5 + [_I, _F] + [_P] * 4},

@@ -28,7 +28,7 @@ from svnicp_tpu_torch.kernels.knn import bucket_block_size, group_scores
 _JITTER = 1e-6
 _N_MOMENTS = 27
 _N_POINT_SUMS = 16   # B4's per-tile sums: the distinct entries of H and b
-_POINT_TILE = 16     # B4's source points per block (kTile in point_moments.cu)
+_POINT_TILE = 16     # B4's source points per block (kTile in point_match.cuh)
 
 
 # --------------------------------------------------------------- B1 stage-1
@@ -68,11 +68,13 @@ def bucketed_candidates(source, target, source_valid, target_valid, k: int
         raise ValueError("bucketed_candidates: masks must be [B] and [Nt]")
     blk = bucket_block_size(nt, k)
     group = (nt + (-nt) % (k * blk)) // k
-    cand = torch.empty((b, k, 3), dtype=torch.float32, device=source.device)
-    d2 = torch.empty((b, k), dtype=torch.float32, device=source.device)
+    dev = source.device
+    cand = torch.empty((b, k, 3), dtype=torch.float32, device=dev)
+    d2 = torch.empty((b, k), dtype=torch.float32, device=dev)
+    prep = torch.empty((k * group, 4), dtype=torch.float32, device=dev)
     err = _build.library("stage1.cu").svn_stage1_candidates(
         _build.ptr(source), _build.ptr(source_valid), _build.ptr(target),
-        _build.ptr(target_valid), b, nt, k, blk, group, _build.ptr(cand),
+        _build.ptr(target_valid), b, nt, k, blk, group, _build.ptr(prep), _build.ptr(cand),
         _build.ptr(d2), _build.stream_of(source))
     _build.check(err, "stage1 kernel")
     bucketed_candidates.launches += 1
@@ -80,6 +82,7 @@ def bucketed_candidates(source, target, source_valid, target_valid, k: int
 
 
 bucketed_candidates.launches = 0
+
 
 
 # ----------------------------------------------------- B2 plane moments

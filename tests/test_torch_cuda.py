@@ -27,8 +27,27 @@ def dev():
     return resolve_device("cuda")
 
 
-@pytest.mark.parametrize("b,nt,k", [(1, 64, 1), (300, 5000, 12), (513, 20000, 32)])
+def _kernel_names(fn, calls: int = 5):
+    """The names of the CUDA kernels that `calls` calls of fn() launch, one
+    entry per kernel (the profiler can drop a launch's event, rarely all of
+    a kernel's in five calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("b,nt,k", [(1, 64, 1), (300, 5000, 12), (513, 20000, 32),
+                                    (1000, 30000, 100), (777, 12345, 32)])
 def test_stage1_kernel(dev, b, nt, k):
+    # Nt=5000, 20000, 30000 and 12345 leave padding rows at the end of
+    # groups; B=513 and 777 end inside a block of 512 sources
     g = torch.Generator().manual_seed(b)
     src = (torch.randn((b, 3), generator=g) * 10).to(dev)
     tgt = (torch.randn((nt, 3), generator=g) * 10).to(dev)
@@ -49,6 +68,22 @@ def test_stage1_kernel(dev, b, nt, k):
     keep = fin & (gap > 1e-5 * two[..., 0].abs().clamp_min(1.0))
     torch.testing.assert_close(cand_k[keep], cand_p[keep], rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(d2_k[keep], d2_p[keep], rtol=1e-4, atol=1e-3)
+    cand_k2, d2_k2 = nn.bucketed_candidates(src, tgt, sv, tv, k)
+    assert torch.equal(cand_k, cand_k2) and torch.equal(d2_k, d2_k2)
+
+
+@pytest.mark.parametrize("b,k", [(300, 12), (4096, 100)])
+def test_stage1_launches_its_two_kernels_and_nothing_else(dev, b, k):
+    # the target prep and the search
+    g = torch.Generator().manual_seed(11)
+    src = (torch.randn((b, 3), generator=g) * 10).to(dev)
+    tgt = (torch.randn((20000, 3), generator=g) * 10).to(dev)
+    sv = torch.ones(b, dtype=torch.bool, device=dev)
+    tv = torch.ones(20000, dtype=torch.bool, device=dev)
+    names = _kernel_names(lambda: nn.bucketed_candidates(src, tgt, sv, tv, k))
+    assert len(names) == 2, names
+    assert any("stage1_prep_kernel" in n for n in names), names
+    assert any("stage1_kernel" in n for n in names), names
 
 
 @pytest.mark.parametrize("ties", [False, True])
@@ -165,13 +200,16 @@ def test_point_moments_launches_its_two_kernels_and_nothing_else(dev):
 
 
 @pytest.mark.parametrize("ties", [False, True])
-@pytest.mark.parametrize("p,b,k", [(1, 7, 3), (10, 300, 12), (30, 1000, 100)])
+@pytest.mark.parametrize("p,b,k", [(1, 7, 3), (10, 300, 12), (30, 1000, 100),
+                                   (33, 1000, 100), (64, 1024, 32)])
 def test_nn_match_kernel(dev, p, b, k, ties):
     # the operands of the point-moments test above: candidate j sits
     # 0.1 (j+1) m from its point, 10% of the slots invalid and a point with
     # none valid, K padded to a multiple of 8. With `ties`, candidate 1
     # takes candidate 0's score features but another position, an exact tie
-    # whose points must be averaged.
+    # whose points must be averaged. P=1 and 10 take a particle group of 16
+    # lanes, P=30 one of 32, P=33 and 64 two groups of 32; B=7 and 1000 the
+    # 4-byte copies and scalar stores.
     g = torch.Generator().manual_seed(p * b + k + 1)
     src = torch.randn((b, 3), generator=g) * 5
     dirs = torch.nn.functional.normalize(torch.randn((b, k, 3), generator=g), dim=-1)
@@ -202,6 +240,21 @@ def test_nn_match_kernel(dev, p, b, k, ties):
     torch.testing.assert_close(b_k[fin], b_p[fin], rtol=1e-4, atol=1e-3)
     m_k2, b_k2 = nn.nn_match(params.contiguous(), prep)
     assert torch.equal(m_k, m_k2) and torch.equal(b_k, b_k2)
+
+
+def test_nn_match_launches_its_kernel_and_nothing_else(dev):
+    g = torch.Generator().manual_seed(10)
+    b, k, p = 512, 16, 30
+    src = torch.randn((b, 3), generator=g) * 5
+    cand = src[:, None, :] + torch.randn((b, k, 3), generator=g)
+    cvalid = torch.rand((b, k), generator=g) > 0.1
+    params = torch.cat([torch.eye(3).reshape(1, 9).repeat(p, 1), torch.zeros((p, 3))], -1)
+    src, cand, cvalid, params = (x.to(dev) for x in (src, cand, cvalid, params))
+    feat, bias = svn.correspondence_features(src, cand, cvalid)
+    prep = nn.prepare_moments_point(feat, bias, cand, src, torch.ones(b, dtype=torch.bool,
+                                                                      device=dev))
+    names = _kernel_names(lambda: nn.nn_match(params, prep))
+    assert len(names) == 1 and "nn_match_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("use_prior", [False, True])
