@@ -13,7 +13,9 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    ragged shapes with exact ties (B3 also at P=300 and 512), repeats
    bit-identical, with the kernel's time, the plain version's time and the
    bound (B1 at both k, B3 at both P, B4 also at configs/subt_mrs.yaml's
-   shapes);
+   shapes, B1 and B2 also on the features path's operands: P=10, K=32,
+   B=4096); then one proxy sweep's feature selection and segmentation on
+   the card against the CPU, and their device time;
 4. main path: `LIOPipeline(configs/tpu_plane.yaml)` on 3 warm-up + 20 timed
    frames of the bench sequence (32,000-point scans of
    SyntheticWorld(extent=80, n_walls=24, n_boxes=16, seed=7)), with each
@@ -36,7 +38,21 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    motion-distorted 32,000-point sweeps of SyntheticWorld(extent=60,
    seed=7) fed with their per-point times, with the launch counts, the
    frames aligned as in the JAX package's own run and ATE against the
-   mid-sweep poses under the limit taken from that run (SVGD_ATE_LIMIT).
+   mid-sweep poses under the limit taken from that run (SVGD_ATE_LIMIT);
+7. features path: `LIOPipeline(configs/tpu_features.yaml)` (LOAM feature
+   selection on the raw sweep, deskew, point-to-plane, the ESKF with the
+   cold-start bootstrap; kernels B1, B2, B3) on 3 warm-up + 20 timed frames
+   of the JAX package's `cli record --proxy` recipe (`proxy_sequence`:
+   ~44,000-point motion-distorted HDL-64 sweeps with their per-point times,
+   a noisy 100 Hz IMU fed in arrival order), with the launch counts, the
+   frames aligned as in the JAX package's own run, a non-zero Kalman gain,
+   the picks per frame and ATE against the mid-sweep poses under the limit
+   taken from that run (FEATURES_ATE_LIMIT), its iterations beside that
+   run's;
+8. SubT-fast path: `LIOPipeline(configs/subt_mrs_fast.yaml)` (host crop and
+   stage-A downsample carrying the sweep times, the int16 upload, deskew on
+   the device, stage-ahead; ICP estimator; kernels B1, B4, B3) on the same
+   frames, with the same checks (SUBT_FAST_ATE_LIMIT).
 Each path's launch counts are set to 0 just before it and read just after.
 Each path prints its iterations per frame beside EARLIER_ITERS (those of
 the first B2 and B3 kernels) and names the frames that moved; the SVGD
@@ -45,11 +61,12 @@ B5 (SVGD_ATE) exactly.
 With `--profile`, a torch.profiler trace of 5 more frames of each path
 (device-busy share, kernels by device time).
 The last lines are the kernel table as JSON (`launches` summed over the
-three paths), the line `nvidia-smi --query-gpu=name,power.limit
+five paths), the line `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader` prints, and {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result. It imports nothing of JAX or of
 the JAX package. The whole run takes well under its 1200 s limit; if it ever
-does not, the main path is to be cut in depth, not the GEODE-Alpha path.
+does not, the main path is to be cut in depth, not the GEODE-Alpha path or
+the two paths of the raw-scan preprocessing.
 """
 
 from __future__ import annotations
@@ -93,6 +110,18 @@ PLANE_JAX_ITERS = [0, 8, 100, 25, 2, 4, 17, 80, 39, 14, 8, 13, 13, 13, 8, 17, 14
 SVGD_JAX_ATE = 0.7128996366642155
 SVGD_ATE_LIMIT = max(1.5 * SVGD_JAX_ATE, SVGD_JAX_ATE + 0.05)
 SVGD_JAX_ALIGN_OK = [True] * 23
+# The same for the features path (tests/test_torch_features_reference.py):
+# configs/tpu_features.yaml on the 23 frames of proxy_sequence.
+FEATURES_JAX_ATE = 0.03604090909697647
+FEATURES_ATE_LIMIT = max(1.5 * FEATURES_JAX_ATE, FEATURES_JAX_ATE + 0.05)
+FEATURES_JAX_ITERS = [0, 88, 5, 12, 10, 55, 6, 100, 36, 4, 78, 18, 7, 9, 4, 6, 6, 8, 9, 9, 10, 5, 8]
+FEATURES_JAX_ALIGN_OK = [True] * 23
+# The same for the SubT-fast path (tests/test_torch_subt_fast_reference.py):
+# configs/subt_mrs_fast.yaml on the same frames.
+SUBT_FAST_JAX_ATE = 0.17700382819413998
+SUBT_FAST_ATE_LIMIT = max(1.5 * SUBT_FAST_JAX_ATE, SUBT_FAST_JAX_ATE + 0.05)
+SUBT_FAST_JAX_ITERS = [0, 95, 100, 100, 100, 100, 100, 100, 81, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100, 100]
+SUBT_FAST_JAX_ALIGN_OK = [True] * 23
 # Iterations per frame of each path with the first B2 and B3 kernels (one
 # block per ensemble with a bisection median; 8 particles per block), on
 # the H100: a kernel that sums in another order may move a frame whose stop
@@ -228,6 +257,68 @@ def svgd_sequence(n_frames: int, n_points: int = 32000):
     return times[:n_frames], sweeps, np.stack(gt_r), np.stack(gt_t)
 
 
+def proxy_sequence(n_frames: int, seed: int = 5, col_step: int = 3):
+    """The JAX package's `cli record --proxy` recipe (`io/stream.record_proxy`
+    with every default: speed 1.5 m/s ramping up over 1 s, 100 Hz IMU with
+    white noise and constant biases, HDL-64 raycast sweeps to 80 m with
+    range noise 0.02 m and dropout 0.05 in 25 pose groups), in memory: one
+    generator (seed + 1) draws the biases, then each sweep's dropout and
+    noise and each IMU sample's noise in arrival order. Values are rounded
+    to float32, as the log stores them, and each sweep's times min-max
+    normalised, as the log reader does -> (events, mid-sweep rotations,
+    translations); an event is ("imu", t, acc, gyro) or ("scan", mid-sweep
+    stamp, points [N,3], per-point times [N] in [0,1])."""
+    from svnicp_tpu_torch.core.imu import GRAVITY
+    from svnicp_tpu_torch.io import datasets
+
+    world = datasets.SyntheticWorld(extent=60.0, seed=seed)
+    imu_dt, stride = 0.01, 10
+    times, rots, trans = datasets.synthetic_trajectory(
+        n_frames * stride + 2, dt=imu_dt, speed=1.5, seed=seed, ramp_seconds=1.0)
+    clean_imu = datasets.synthetic_imu(times, rots, trans, GRAVITY)
+    rng = np.random.default_rng(seed + 1)
+    bg = rng.normal(scale=0.001, size=3)
+    ba = rng.normal(scale=0.02, size=3)
+    events, gt_r, gt_t = [], [], []
+    for t, acc, gyro in clean_imu:
+        while len(gt_r) < n_frames:
+            i = len(gt_r)
+            mid_stamp = (i * stride + stride / 2.0) * imu_dt
+            if mid_stamp > t:
+                break
+            k0, k1 = i * stride, (i + 1) * stride
+            pts, tau, (mid_r, mid_t) = datasets.raycast_sweep(
+                world._surfaces, rots[k0], trans[k0], rots[k1], trans[k1],
+                col_step=col_step, n_groups=25, noise=0.02, dropout=0.05,
+                rng=rng, max_range=80.0)
+            # the log reader min-max normalises the times in float64
+            tau64 = tau.astype(np.float64)
+            lo, hi = tau64.min(), tau64.max()
+            tau = ((tau64 - lo) * (1.0 / (hi - lo))).astype(np.float32)
+            events.append(("scan", float(mid_stamp), pts, tau))
+            gt_r.append(mid_r)
+            gt_t.append(mid_t)
+        acc = acc + ba + rng.normal(scale=0.05, size=3)
+        gyro = gyro + bg + rng.normal(scale=0.005, size=3)
+        events.append(("imu", float(t), acc.astype(np.float32).astype(np.float64),
+                       gyro.astype(np.float32).astype(np.float64)))
+    return events, np.stack(gt_r), np.stack(gt_t)
+
+
+def proxy_frames(events):
+    """proxy_sequence's events as frames (stamp, points, [the IMU samples
+    (t, acc, gyro) that arrive before the scan], per-point times); samples
+    after the last scan are dropped."""
+    frames, imus = [], []
+    for ev in events:
+        if ev[0] == "imu":
+            imus.append(ev[1:])
+        else:
+            frames.append((ev[1], ev[2], imus, ev[3]))
+            imus = []
+    return frames
+
+
 def svgd_config():
     """configs/generic_svgd.yaml on the JAX package's kernel route for SVGD
     (icp.use_pallas=True; the file leaves the XLA route on)."""
@@ -264,7 +355,7 @@ def stage1_inputs(cfg, scans, dev):
     raw = np.zeros((cfg.preprocess.raw_capacity, 3), np.float32)
     n = min(len(scans[2]), len(raw))
     raw[:n] = scans[2][:n]
-    _, _, source = pl._preprocess(cfg, pl.init_state(cfg, dev),
+    _, _, source, _ = pl._preprocess(cfg, pl.init_state(cfg, dev),
                                   torch.from_numpy(raw).to(dev),
                                   torch.arange(len(raw), device=dev) < n)
     return source.points, source.valid, target.points, target.valid
@@ -690,12 +781,12 @@ def _wrapper(key):
 
 
 def feed(pipe, frames, lo: int, hi: int) -> None:
-    """Feed frames lo..hi-1, each (t, scan, imu sample or None, per-point
-    times or None): the IMU sample first, as a sensor stream delivers it
-    before the scan it ends."""
-    for t, scan, imu, tau in frames[lo:hi]:
-        if imu is not None:
-            pipe.feed_imu(*imu)
+    """Feed frames lo..hi-1, each (t, scan, IMU samples, per-point times or
+    None): the IMU samples first, as a sensor stream delivers them before
+    the scan they end."""
+    for t, scan, imus, tau in frames[lo:hi]:
+        for sample in imus:
+            pipe.feed_imu(*sample)
         pipe.feed_scan(float(t), scan, timestamps=tau)
 
 
@@ -723,11 +814,11 @@ def run_path(cfg, frames):
 
 
 def report_path(name, pipe, dt, launches, rots, trans, smi, earlier,
-                align_ok=None) -> float:
+                align_ok=None, scans="32,000-point scans") -> float:
     """Print a path's frames/s, iterations (beside `earlier`, the first
-    kernels' counts, naming the frames that moved), align_ok, ATE and
-    launches and check what every path must show (every frame aligned, or
-    those of `align_ok`) -> ATE [m]."""
+    kernels' counts, naming the frames that moved; None for a path those
+    kernels never ran), align_ok, ATE and launches and check what every
+    path must show (every frame aligned, or those of `align_ok`) -> ATE [m]."""
     from svnicp_tpu_torch.io import metrics
 
     n = WARMUP + TIMED
@@ -739,11 +830,12 @@ def report_path(name, pipe, dt, launches, rots, trans, smi, earlier,
     gt[:, :3, 3] = trans
     ate = metrics.ate_rmse(traj, gt)
     print(f"{name}: {TIMED / dt:.2f} frames/s over {TIMED} timed frames "
-          f"(32,000-point scans) [{smi}]")
+          f"({scans}) [{smi}]")
     print(f"iterations per frame: {iters}")
-    moved = [(i, a, b) for i, (a, b) in enumerate(zip(earlier, iters)) if a != b]
-    print(f"iterations: {sum(iters)} against {sum(earlier)} with the first B2/B3 "
-          f"kernels; frames moved (frame, before, now): {moved}")
+    if earlier is not None:
+        moved = [(i, a, b) for i, (a, b) in enumerate(zip(earlier, iters)) if a != b]
+        print(f"iterations: {sum(iters)} against {sum(earlier)} with the first B2/B3 "
+              f"kernels; frames moved (frame, before, now): {moved}")
     print(f"align_ok per frame: {[o.align_ok for o in outs]}")
     print(f"ATE {ate:.4f} m over {n} frames; launches {launches}; "
           f"stage times {pipe.timer.report()}")
@@ -794,25 +886,107 @@ def profile_frames(cfg, frames, first: int, count: int) -> None:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
+def sweep_buffers(cap: int, frame) -> list:
+    """A proxy frame's sweep padded into the raw route's buffers -> CPU
+    tensors [points [cap,3], valid [cap], times [cap]]."""
+    import torch
+
+    _, pts, _, tau = frame
+    n = min(len(pts), cap)
+    buf = np.zeros((cap, 3), np.float32)
+    buf[:n] = pts[:n]
+    ts = np.zeros(cap, np.float32)
+    ts[:n] = tau[:n]
+    return [torch.from_numpy(a) for a in (buf, np.arange(cap) < n, ts)]
+
+
+def compare_preprocess(cfg, frame, dev) -> tuple[int, int, int, int, list]:
+    """One proxy sweep through the configured feature selection and through
+    range-image segmentation, on the card and on the CPU, both computed
+    with the same float32 steps (glibc's atan2f written out, fused
+    multiply-adds exact), so the picks are expected identical; a pick that
+    differs must come from the card's rounding, and such picks must stay
+    under 1% -> (selection picks that differ, picks, segmented points that
+    differ, points, [(card, CPU) n_edge, n_planar, n_ground])."""
+    from svnicp_tpu_torch.core import segmentation as seg
+    from svnicp_tpu_torch.runtime import pipeline as pl
+
+    pp = cfg.preprocess
+    cap = pp.raw_capacity
+    host = sweep_buffers(cap, frame)
+    card = [a.to(dev) for a in host]
+    sensor = seg.SENSORS[pp.sensor_model]
+
+    def differing(a_pts, a_valid, b_pts, b_valid) -> int:
+        same = (a_valid == b_valid) & ((a_pts - b_pts).abs().amax(-1) == 0)
+        return int((~same & (a_valid | b_valid)).sum())
+
+    want = pl.select_features(cfg, *host)
+    got = pl.select_features(cfg, *card)
+    n_sel = int(want.valid.sum())
+    d_sel = differing(got.points.cpu(), got.valid.cpu(), want.points, want.valid)
+    counts = [(int(a), int(b)) for a, b in zip(got[3:], want[3:])]
+    cloud_w, _ = seg.segment_cloud(*host[:2], sensor, cap, timestamps=host[2])
+    cloud_g, _ = seg.segment_cloud(*card[:2], sensor, cap, timestamps=card[2])
+    n_seg = int(cloud_w.valid.sum())
+    d_seg = differing(cloud_g.points.cpu(), cloud_g.valid.cpu(), cloud_w.points,
+                      cloud_w.valid)
+    assert n_sel > 500 and n_seg > 1000, (n_sel, n_seg)
+    assert d_sel <= 0.01 * n_sel and d_seg <= 0.01 * n_seg, (d_sel, d_seg)
+    return d_sel, n_sel, d_seg, n_seg, counts
+
+
+def check_preprocess(cfg, frames, dev, smi) -> None:
+    """`compare_preprocess` on two proxy sweeps (the card's first call
+    captures the selection's CUDA graph, the second replays it on new
+    inputs), then the selection's and the projection's device time and the
+    selection's time per call."""
+    from svnicp_tpu_torch.core import features
+    from svnicp_tpu_torch.core import segmentation as seg
+    from svnicp_tpu_torch.runtime import pipeline as pl
+
+    for frame in frames:
+        d_sel, n_sel, d_seg, n_seg, counts = compare_preprocess(cfg, frame, dev)
+        print(f"preprocess on the card vs the CPU, one {len(frame[1])}-point sweep: "
+              f"select_features {d_sel} of {n_sel} picks differ, (n_edge, n_planar, "
+              f"n_ground) card/CPU {counts}; segment_cloud {d_seg} of {n_seg} "
+              f"points differ")
+    pp = cfg.preprocess
+    cap = pp.raw_capacity
+    card = [a.to(dev) for a in sweep_buffers(cap, frames[0])]
+    sensor = seg.SENSORS[pp.sensor_model]
+    sel_ms = device_ms(lambda: pl.select_features(cfg, *card), 10)
+    sel_call = cuda_time_ms(lambda: pl.select_features(cfg, *card), 10)
+    # the selection launched op by op, as before it became one graph
+    opts = pl.selection_options(cfg)
+    sel_ops = cuda_time_ms(lambda: features.select_features_ops(*card, **opts), 10)
+    proj_ms = device_ms(lambda: seg.project(card[0], card[1], sensor, card[2]), 10)
+    seg_ms = device_ms(lambda: seg.segment_cloud(*card[:2], sensor, cap), 3)
+    print(f"time select_features: {sel_ms:.4f} ms on the device per sweep "
+          f"({sel_call:.4f} ms per call back to back, one CUDA graph; {sel_ops:.4f} "
+          f"ms per call launched op by op), of which project {proj_ms:.4f} ms; "
+          f"segment_cloud {seg_ms:.4f} ms on the device  [{smi}]")
+
+
 def moments_bound(params, prep, k: int, point_floats: int, slot_ops: float,
                   point_ops: float) -> tuple[float, str]:
-    """What a moments function (B2, B4) needs, not the kernels' operand
-    layout (13 prepared floats per slot). In the coordinate form
-    score = |c|^2 - 2 c.(T s) it reads each of the k stage-1 candidate slots
-    of a point once (3 coordinates and a validity byte), `point_floats`
-    floats and a mask byte per point and the particles, and writes H and b.
-    Operations, counted where the work lies (points the mask keeps, valid
-    slots of those): 8 per (particle, slot) for the score, `slot_ops` per
-    slot once for all particles (|c|^2, and n.c for B2), 15 per (particle,
-    point) for T s and `point_ops` for the tie average, residual, weight
-    and moments."""
+    """What a moments function (B2, B4) needs on this run's data, not the
+    kernels' operand layout (13 prepared floats per slot). Bytes: the mask
+    byte of each of the b rows; for each row the mask keeps, the k stage-1
+    candidate slots once (3 coordinates and a validity byte, read in the
+    coordinate form score = |c|^2 - 2 c.(T s)) and `point_floats` floats;
+    the particles read and H and b written. Operations, counted where the
+    work lies (kept rows, valid slots of those): 8 per (particle, slot) for
+    the score, `slot_ops` per slot once for all particles (|c|^2, and n.c
+    for B2), 15 per (particle, point) for T s and `point_ops` for the tie
+    average, residual, weight and moments."""
     import torch
 
     p, b = params.shape[0], prep.vmask.shape[0]
     kept = prep.vmask > 0
     n_slots = int((torch.isfinite(prep.feat13[12]) & kept).sum())
     n_pts = int(kept.sum())
-    nbytes = b * k * (3 * 4 + 1) + b * (point_floats * 4 + 1) + p * (12 + 42) * 4
+    nbytes = b + n_pts * (k * (3 * 4 + 1) + point_floats * 4) + p * (12 + 42) * 4
     flops = p * (8.0 * n_slots + (15.0 + point_ops) * n_pts) + slot_ops * n_slots
     return bound_ms(flops, nbytes)
 
@@ -858,10 +1032,15 @@ def main() -> int:
     gcfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "geode_alpha.yaml"))
     scfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "subt_mrs.yaml"))
     vcfg = svgd_config()
+    fcfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "tpu_features.yaml"))
+    sfcfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "subt_mrs_fast.yaml"))
     n_frames = WARMUP + TIMED
     times, rots, trans, scans = bench_sequence(n_frames)
     gtimes, grots, gtrans, gscans, gimu = geode_sequence(n_frames)
     vtimes, vsweeps, vgt_r, vgt_t = svgd_sequence(n_frames)
+    events, pgt_r, pgt_t = proxy_sequence(n_frames)
+    pframes = proxy_frames(events)
+    del events
     icp, gicp = cfg.icp, gcfg.icp
     p, k = icp.particle_count, icp.knn_count
 
@@ -902,15 +1081,35 @@ def main() -> int:
     params_r, prep_r = tied_moments_inputs(icp, 10, 300, 12, dev, seed=12)
     check_moments(f"ragged P=10 B=300 K={prep_r.feat13.shape[1]} with ties",
                   params_r, prep_r, icp.max_dist, errs["B2"], ties=True)
-    call = cuda_time_ms(lambda: nn.plane_moments(params, prep, icp.max_dist), 50)
-    # both launches: the moments and the pass that sums the tiles into H, b
-    ms = device_ms(lambda: nn.plane_moments(params, prep, icp.max_dist), 50,
-                   ["plane_moments_kernel", "plane_system_kernel"])
-    plain = device_ms(lambda: nn.plane_moments_plain(params, prep, icp.max_dist), 10)
-    # B2 reads a normal with each point and computes n.c once per slot
-    b_ms, b_by = moments_bound(params, prep, k, point_floats=6, slot_ops=10.0,
-                               point_ops=130.0)
-    table["B2"] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+
+    def time_plane_moments(params_, prep_, icp_):
+        md = icp_.max_dist
+        call = cuda_time_ms(lambda: nn.plane_moments(params_, prep_, md), 50)
+        # both launches: the moments and the pass that sums the tiles into H, b
+        ms = device_ms(lambda: nn.plane_moments(params_, prep_, md), 50,
+                       ["plane_moments_kernel", "plane_system_kernel"])
+        plain = device_ms(lambda: nn.plane_moments_plain(params_, prep_, md), 10)
+        # B2 reads a normal with each point and computes n.c once per slot
+        b_ms, b_by = moments_bound(params_, prep_, icp_.knn_count, point_floats=6,
+                                   slot_ops=10.0, point_ops=130.0)
+        return dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+
+    table["B2"] = time_plane_moments(params, prep, icp)
+
+    # B1 and B2 on the features path's own operands: sweep 2's feature
+    # selection against a map of sweeps 0-1, P=10, K=32, B=4096 (B2 serves
+    # 64 particles a block; 54 of them masked here)
+    ficp = fcfg.icp
+    fsrc, fsv, ftgt, ftv = stage1_inputs(fcfg, [f[1] for f in pframes], dev)
+    check_stage1(f"features B={fsrc.shape[0]} Nt={ftgt.shape[0]} k={ficp.knn_count}",
+                 fsrc, fsv, ftgt, ftv, ficp.knn_count, errs["B1"])
+    fparams, fprep = main_path_moments_inputs(ficp, fsrc, fsv, ftgt, ftv, dev)
+    check_moments(f"features P={ficp.particle_count} B={ficp.source_capacity} "
+                  f"K={fprep.feat13.shape[1]} ({int(fsv.sum())} selected points)",
+                  fparams, fprep, ficp.max_dist, errs["B2"])
+    table[f"B2 (features P={ficp.particle_count})"] = time_plane_moments(fparams, fprep, ficp)
+    del fsrc, fsv, ftgt, ftv, fparams, fprep
+    check_preprocess(fcfg, pframes[2:4], dev, smi)
 
     # B4: the geode path's own operands, subt_mrs's shapes, ragged with ties
     gparams, gprep = main_path_moments_inputs(gicp, gsrc, gsv, gtgt, gtv, dev)
@@ -966,10 +1165,15 @@ def main() -> int:
     ghess, gbb, gr, gt, gprior = stein_inputs(gp, dev, seed=14)
     check_stein(f"main P={p}", hess, bb, r, t, prior, errs["B3"])
     check_stein(f"geode P={gp}", ghess, gbb, gr, gt, gprior, errs["B3"])
+    # and at the SubT-fast path's P
+    sp = sfcfg.icp.particle_count
+    shess, sbb, sr, st, sprior = stein_inputs(sp, dev, seed=sp)
+    check_stein(f"subt-fast P={sp}", shess, sbb, sr, st, sprior, errs["B3"])
     for big in (300, 512):
         check_stein(f"large P={big}", *stein_inputs(big, dev, seed=big), errs["B3"])
     table["B3"] = time_stein(hess, bb, r, t)
-    table[f"B3 (geode P={gp})"] = time_stein(ghess, gbb, gr, gt)
+    table[f"B3 (geode and features P={gp})"] = time_stein(ghess, gbb, gr, gt)
+    table[f"B3 (subt-fast P={sp})"] = time_stein(shess, sbb, sr, st)
     # those bounds are far below one launch: the device time of a
     # one-element fill is the least any kernel takes here
     one = torch.zeros(1, device=dev)
@@ -977,8 +1181,8 @@ def main() -> int:
     print(f"launch floor: a one-element fill takes {floor:.4f} ms on the device "
           f"({cuda_time_ms(lambda: one.fill_(1.0), 200):.4f} ms per call, back "
           f"to back); B3's work bound is {table['B3']['bound_ms']:.6f} ms at "
-          f"P={p} and {table[f'B3 (geode P={gp})']['bound_ms']:.6f} ms at "
-          f"P={gp}  [{smi}]")
+          f"P={p} and {table[f'B3 (geode and features P={gp})']['bound_ms']:.6f} ms "
+          f"at P={gp}  [{smi}]")
     for name, row in table.items():
         print(f"time {name}: kernel {row['ms']:.4f} ms on the device "
               f"({row['call_ms']:.4f} ms per wrapper call, back to back)  plain "
@@ -986,7 +1190,7 @@ def main() -> int:
               f"({row['bound_by']})  library_ms: none  [{smi}]")
 
     # ---- 4. main path
-    frames = [(times[i], scans[i], None, None) for i in range(n_frames)]
+    frames = [(times[i], scans[i], [], None) for i in range(n_frames)]
     pipe, dt, launches = run_path(cfg, frames)
     ate = report_path("main path (configs/tpu_plane.yaml)", pipe, dt, launches,
                       rots, trans, smi, EARLIER_ITERS["main"])
@@ -1003,7 +1207,7 @@ def main() -> int:
     del src, sv, tgt, tv, params, prep
 
     # ---- 5. GEODE-Alpha path
-    gframes = [(gtimes[i], gscans[i], gimu[i], None) for i in range(n_frames)]
+    gframes = [(gtimes[i], gscans[i], [gimu[i]], None) for i in range(n_frames)]
     gpipe, gdt, glaunches = run_path(gcfg, gframes)
     gate = report_path("geode path (configs/geode_alpha.yaml)", gpipe, gdt,
                        glaunches, grots, gtrans, smi, EARLIER_ITERS["geode"])
@@ -1021,7 +1225,7 @@ def main() -> int:
         profile_frames(gcfg, gframes, WARMUP, 5)
 
     # ---- 6. SVGD path
-    vframes = [(vtimes[i], vsweeps[i][0], None, vsweeps[i][1]) for i in range(n_frames)]
+    vframes = [(vtimes[i], vsweeps[i][0], [], vsweeps[i][1]) for i in range(n_frames)]
     vpipe, vdt, vlaunches = run_path(vcfg, vframes)
     vate = report_path("svgd path (configs/generic_svgd.yaml, use_pallas=True)",
                        vpipe, vdt, vlaunches, vgt_r, vgt_t, smi, EARLIER_ITERS["svgd"],
@@ -1040,11 +1244,50 @@ def main() -> int:
     if args.profile:
         profile_frames(vcfg, vframes, WARMUP, 5)
 
+    # ---- 7. features path
+    scans = (f"HDL-64 proxy sweeps of {int(np.mean([len(f[1]) for f in pframes]))} "
+             f"points on average")
+    fpipe, fdt, flaunches = run_path(fcfg, pframes)
+    fate = report_path("features path (configs/tpu_features.yaml)", fpipe, fdt,
+                       flaunches, pgt_r, pgt_t, smi, None, FEATURES_JAX_ALIGN_OK, scans)
+    fiters = sum(o.icp_iterations for o in fpipe.outputs)
+    fgains = [float(o.kf_gain.abs().max()) for o in fpipe.outputs]
+    picks = [tuple(int(x) for x in o.feature_counts) for o in fpipe.outputs[1:]]
+    print_jax_iters("features path", FEATURES_JAX_ITERS, fpipe)
+    print(f"features path: (n_edge, n_planar, n_ground) per frame from frame 1 {picks}")
+    print(f"features path: max |Kalman gain| per frame {[f'{x:.3g}' for x in fgains]}; "
+          f"ATE against the mid-sweep poses, limit {FEATURES_ATE_LIMIT:.4f} m (the JAX "
+          f"package's float32 run: {FEATURES_JAX_ATE:.4f} m)")
+    assert flaunches["B2"] == fiters == flaunches["B3"], (flaunches, fiters)
+    assert flaunches["B4"] == flaunches["B5"] == 0, flaunches
+    assert all(x > 0 for x in fgains[1:]), fgains
+    assert all(e + p > 0 for e, p, _ in picks), picks
+    assert fate < FEATURES_ATE_LIMIT, (fate, FEATURES_ATE_LIMIT)
+    if args.profile:
+        profile_frames(fcfg, pframes, WARMUP, 5)
+
+    # ---- 8. SubT-fast path (IMU samples fed too; the ICP estimator
+    # consumes their windows unused, as the JAX package does)
+    spipe, sdt, slaunches = run_path(sfcfg, pframes)
+    sate = report_path("subt-fast path (configs/subt_mrs_fast.yaml)", spipe, sdt,
+                       slaunches, pgt_r, pgt_t, smi, None, SUBT_FAST_JAX_ALIGN_OK, scans)
+    siters = sum(o.icp_iterations for o in spipe.outputs)
+    print_jax_iters("subt-fast path", SUBT_FAST_JAX_ITERS, spipe)
+    print(f"subt-fast path: ATE against the mid-sweep poses, limit "
+          f"{SUBT_FAST_ATE_LIMIT:.4f} m (the JAX package's float32 run: "
+          f"{SUBT_FAST_JAX_ATE:.4f} m)")
+    assert slaunches["B4"] == siters == slaunches["B3"], (slaunches, siters)
+    assert slaunches["B2"] == slaunches["B5"] == 0, slaunches
+    assert sate < SUBT_FAST_ATE_LIMIT, (sate, SUBT_FAST_ATE_LIMIT)
+    if args.profile:
+        profile_frames(sfcfg, pframes, WARMUP, 5)
+
     rows = []
     for key, (_, name, source, replaces) in KERNELS.items():
         row = table[key]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=launches[key] + glaunches[key] + vlaunches[key],
+                         launches=sum(x[key] for x in (launches, glaunches, vlaunches,
+                                                        flaunches, slaunches)),
                          max_abs_err=max(errs[key]), ms=row["ms"],
                          plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                          bound_by=row["bound_by"], library_ms=None))

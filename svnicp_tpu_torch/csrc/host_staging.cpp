@@ -1,8 +1,9 @@
 // Host-side frame staging for the PyTorch port: range crop + pad, and one
-// stage of the uniform downsample. The port's own copy of svn_stage_scan and
-// svn_downsample_one_stage from native/svnicp_native.cpp (the functions the
-// main path calls), with the same arithmetic, so the staged clouds are
-// byte-equal to the JAX package's. Plain C ABI, bound with ctypes
+// stage of the uniform downsample, each also in a form that carries the
+// per-point sweep times of the rows it keeps. The port's own copy of
+// svn_stage_scan, svn_stage_scan_ts, svn_downsample_one_stage and
+// svn_downsample_one_stage_ts from native/svnicp_native.cpp, with the same
+// arithmetic, so the staged clouds are byte-equal to the JAX package's. Plain C ABI, bound with ctypes
 // (svnicp_tpu_torch/io/native.py); built with g++ at first use.
 //
 // Downsample semantics (bit-compatible with core/pointcloud.downsample_uniform):
@@ -34,8 +35,10 @@ inline uint32_t svn_hash32(uint32_t x) {
 // Open-addressing flat table of packed entries, two passes with software
 // prefetch (the probe is a random access into a table of 256+ KB per point),
 // and nth_element + partial sort for the capacity truncation.
+// With `ts`, out_ts gets the kept rows' times in the same order.
 int svn_downsample_stage(const float* xyz, int n, float voxel, float* out,
-                         int capacity) {
+                         int capacity, const float* ts = nullptr,
+                         float* out_ts = nullptr) {
   struct Entry { int32_t key; float d; int32_t idx; };   // one cache line
   size_t tsize = 64;
   while (tsize < (size_t)n * 2) tsize <<= 1;
@@ -108,18 +111,17 @@ int svn_downsample_stage(const float* xyz, int n, float voxel, float* out,
   std::sort(rows.begin(), rows.end(), lt);
   for (int j = 0; j < m; ++j) {
     std::memcpy(out + 3 * j, xyz + 3 * rows[j].idx, sizeof(float) * 3);
+    if (out_ts) out_ts[j] = ts[rows[j].idx];
   }
   return m;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Crop by range (min < |p| < max, finite) and pad into [capacity,3]; out_valid
-// gets 0/1 bytes. Returns the number of points staged.
-int svn_stage_scan(const float* xyz, int n, float min_range, float max_range,
-                   float* out_xyz, uint8_t* out_valid, int capacity) {
+// Crop by range (min < |p| < max, finite) and pad into [capacity,3]. Each
+// of out_valid (0/1 bytes) and, with ts, out_ts (the kept rows' times) may
+// be null. Returns the number of points staged.
+int svn_crop_stage(const float* xyz, const float* ts, int n, float min_range,
+                   float max_range, float* out_xyz, uint8_t* out_valid,
+                   float* out_ts, int capacity) {
   const float min2 = min_range * min_range;
   const float max2 = max_range * max_range;
   int m = 0;
@@ -130,13 +132,35 @@ int svn_stage_scan(const float* xyz, int n, float min_range, float max_range,
       out_xyz[3 * m + 0] = x;
       out_xyz[3 * m + 1] = y;
       out_xyz[3 * m + 2] = z;
-      out_valid[m] = 1;
+      if (out_valid) out_valid[m] = 1;
+      if (out_ts) out_ts[m] = ts[i];
       ++m;
     }
   }
   std::memset(out_xyz + 3 * m, 0, sizeof(float) * 3 * (capacity - m));
-  std::memset(out_valid + m, 0, capacity - m);
+  if (out_valid) std::memset(out_valid + m, 0, capacity - m);
+  if (out_ts) std::memset(out_ts + m, 0, sizeof(float) * (capacity - m));
   return m;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Crop by range and pad into [capacity,3]; out_valid gets 0/1 bytes.
+int svn_stage_scan(const float* xyz, int n, float min_range, float max_range,
+                   float* out_xyz, uint8_t* out_valid, int capacity) {
+  return svn_crop_stage(xyz, nullptr, n, min_range, max_range, out_xyz,
+                        out_valid, nullptr, capacity);
+}
+
+// svn_stage_scan carrying per-point times (same selection and order); a
+// null ts stages the points alone.
+int svn_stage_scan_ts(const float* xyz, const float* ts, int n,
+                      float min_range, float max_range, float* out_xyz,
+                      float* out_ts, int capacity) {
+  return svn_crop_stage(xyz, ts, n, min_range, max_range, out_xyz, nullptr,
+                        ts ? out_ts : nullptr, capacity);
 }
 
 // One uniform-downsample stage of [n,3] at `voxel`, capped at `capacity`
@@ -145,6 +169,18 @@ int svn_downsample_one_stage(const float* xyz, int n, float voxel,
                              float* out, int capacity) {
   const int m = svn_downsample_stage(xyz, n, voxel, out, capacity);
   std::memset(out + 3 * m, 0, sizeof(float) * 3 * (capacity - m));
+  return m;
+}
+
+// svn_downsample_one_stage carrying the kept rows' times, zero-padded; a
+// null ts downsamples the points alone.
+int svn_downsample_one_stage_ts(const float* xyz, const float* ts, int n,
+                                float voxel, float* out, float* out_ts,
+                                int capacity) {
+  if (!ts) out_ts = nullptr;
+  const int m = svn_downsample_stage(xyz, n, voxel, out, capacity, ts, out_ts);
+  std::memset(out + 3 * m, 0, sizeof(float) * 3 * (capacity - m));
+  if (out_ts) std::memset(out_ts + m, 0, sizeof(float) * (capacity - m));
   return m;
 }
 

@@ -1,8 +1,8 @@
 """Synthetic ground-truthed LiDAR sequences (port of
 `svnicp_tpu/io/datasets.py`: `SyntheticWorld.scan_at` and `scan_sweep`,
-`synthetic_trajectory` and `synthetic_imu`). The same numpy draws in the
-same order, so a scan made here from a seed is byte-equal to the JAX
-package's (a sweep equal to float32 rounding)."""
+`raycast_sweep`, `synthetic_trajectory` and `synthetic_imu`). The same
+numpy draws in the same order, so a scan made here from a seed is
+byte-equal to the JAX package's (a sweep equal to float32 rounding)."""
 
 from __future__ import annotations
 
@@ -106,6 +106,85 @@ class SyntheticWorld:
         mid_t = pose0_r @ tm.numpy() + pose0_t
         local += rng.normal(scale=noise, size=local.shape)
         return local.astype(np.float32), tau, (mid_r, mid_t)
+
+
+def raycast_sweep(surfaces, pose0_r, pose0_t, pose1_r, pose1_t,
+                  n_scan: int = 64, horizon: int = 2250,
+                  ang_res_y: float = 26.8 / 63.0, ang_bottom: float = 24.8,
+                  max_range: float = 80.0, noise: float = 0.02,
+                  col_step: int = 1, n_groups: int = 25,
+                  dropout: float = 0.0, rng=None):
+    """Motion-distorted HDL-64 raycast sweep (the JAX package's offline proxy
+    of a rotating-LiDAR log). Azimuth column c is observed at sweep fraction
+    tau = c / horizon from the pose screw-interpolated between pose0 (sweep
+    start) and pose1 (sweep end), one pose per each of `n_groups` column
+    groups; each ray's first hit on `surfaces` within (0.3, max_range) is
+    returned in that pose's sensor frame, after per-ray `dropout` and range
+    `noise` along the ray. The poses are interpolated in float32, as the JAX
+    package does, so the two agree to rounding, not to the byte.
+
+    Returns (points [N,3] f32 in the mixed sensor frames, tau [N] f32,
+    (mid_r, mid_t), the tau=0.5 pose the deskewed cloud lives in)."""
+    import torch
+
+    from svnicp_tpu_torch.core import geometry as geo
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32)
+
+    rng = rng or np.random.default_rng(0)
+    rows = np.arange(n_scan)
+    cols = np.arange(0, horizon, col_step)
+    vert = np.radians(-ang_bottom + rows * ang_res_y)            # [R]
+    horiz = np.radians(90.0 - cols * (360.0 / horizon))          # [C]
+    cv, sv = np.cos(vert)[:, None], np.sin(vert)[:, None]
+    ch, sh = np.cos(horiz)[None, :], np.sin(horiz)[None, :]
+    dirs = np.stack([cv * sh, cv * ch, np.broadcast_to(sv, (n_scan, len(cols)))],
+                    axis=-1)                                     # [R,C,3]
+    col_tau = (cols.astype(np.float64) / horizon).astype(np.float32)
+
+    rdelta, tdelta = geo.transform_compose(
+        *geo.transform_inverse(f32(pose0_r), f32(pose0_t)), f32(pose1_r),
+        f32(pose1_t))
+    xi = geo.se3_log(rdelta, tdelta).numpy()
+
+    def pose_at(tau):
+        rloc, tloc = geo.se3_exp(torch.from_numpy(tau * xi))
+        return pose0_r @ rloc.numpy(), pose0_r @ tloc.numpy() + pose0_t
+
+    bounds = np.linspace(0, len(cols), n_groups + 1).astype(int)
+    out_pts, out_tau = [], []
+    for g in range(n_groups):
+        c0, c1 = bounds[g], bounds[g + 1]
+        if c0 == c1:
+            continue
+        rg, tg = pose_at(float(col_tau[(c0 + c1) // 2]))
+        d = dirs[:, c0:c1].reshape(-1, 3)
+        dirs_w = d @ rg.T
+        best_t = np.full(len(d), np.inf)
+        for (o, u, v, ul, vl) in surfaces:
+            n = np.cross(u, v)
+            denom = dirs_w @ n
+            with np.errstate(divide="ignore", invalid="ignore"):
+                t = ((o - tg) @ n) / denom
+                p = tg[None] + t[:, None] * dirs_w
+                a = (p - o[None]) @ u
+                b = (p - o[None]) @ v
+                hit = (np.abs(denom) > 1e-9) & (t > 0.3) & (t < max_range) \
+                    & (a >= 0) & (a <= ul) & (b >= 0) & (b <= vl)
+            best_t = np.where(hit & (t < best_t), t, best_t)
+        ok = np.isfinite(best_t)
+        if dropout > 0:
+            ok &= rng.uniform(size=len(d)) >= dropout
+        rngs = best_t[ok]
+        if noise > 0:
+            rngs = rngs + rng.normal(scale=noise, size=rngs.shape)
+        out_pts.append(rngs[:, None] * d[ok])
+        out_tau.append(np.broadcast_to(
+            col_tau[None, c0:c1], (n_scan, c1 - c0)).reshape(-1)[ok])
+    pts = np.concatenate(out_pts).astype(np.float32)
+    tau = np.concatenate(out_tau).astype(np.float32)
+    return pts, tau, pose_at(0.5)
 
 
 def synthetic_trajectory(n_frames: int, dt: float = 0.1, speed: float = 1.5,

@@ -1,7 +1,8 @@
-"""Host frame staging: range crop + pad, and one uniform-downsample stage.
+"""Host frame staging: range crop + pad, and one uniform-downsample stage,
+each also carrying per-point sweep times.
 
-ctypes bindings for `csrc/host_staging.cpp`, the port's own copy of the two
-host functions of `native/svnicp_native.cpp` the odometry path calls. The
+ctypes bindings for `csrc/host_staging.cpp`, the port's own copy of the
+four host functions of `native/svnicp_native.cpp` the odometry path calls. The
 library is built with g++ into `build/svnicp_tpu_torch/` at first use (the
 JAX package's flags, so both produce the same bytes); if it cannot be
 built, the staging functions raise. The numpy versions beside them compute
@@ -55,6 +56,13 @@ def library() -> ctypes.CDLL:
         lib.svn_downsample_one_stage.restype = ctypes.c_int
         lib.svn_downsample_one_stage.argtypes = [
             fptr, ctypes.c_int, ctypes.c_float, fptr, ctypes.c_int]
+        lib.svn_stage_scan_ts.restype = ctypes.c_int
+        lib.svn_stage_scan_ts.argtypes = [
+            fptr, fptr, ctypes.c_int, ctypes.c_float, ctypes.c_float, fptr,
+            fptr, ctypes.c_int]
+        lib.svn_downsample_one_stage_ts.restype = ctypes.c_int
+        lib.svn_downsample_one_stage_ts.argtypes = [
+            fptr, fptr, ctypes.c_int, ctypes.c_float, fptr, fptr, ctypes.c_int]
         _lib = lib
         return lib
 
@@ -88,25 +96,100 @@ def downsample_one_stage(xyz: np.ndarray, voxel: float, capacity: int
     return out, n
 
 
+def _times(ts, capacity):
+    """(contiguous float32 times, their output buffer), or (None, None)."""
+    if ts is None:
+        return None, None
+    return np.ascontiguousarray(ts, np.float32), np.zeros(capacity, np.float32)
+
+
+def _optr(a):
+    return None if a is None else _fptr(a)
+
+
+def stage_scan_ts(xyz: np.ndarray, ts: np.ndarray | None, min_range: float,
+                  max_range: float, capacity: int
+                  ) -> tuple[np.ndarray, np.ndarray | None, int]:
+    """`stage_scan` carrying per-point times (same selection and order) ->
+    (padded [capacity,3] f32, padded times [capacity] f32, count); with ts
+    None the times are None."""
+    lib = library()
+    xyz = np.ascontiguousarray(xyz, np.float32)
+    ts, out_ts = _times(ts, capacity)
+    out = np.empty((capacity, 3), np.float32)
+    n = lib.svn_stage_scan_ts(_fptr(xyz), _optr(ts), len(xyz), min_range,
+                              max_range, _fptr(out), _optr(out_ts), capacity)
+    return out, out_ts, n
+
+
+def downsample_one_stage_ts(xyz: np.ndarray, ts: np.ndarray | None, voxel: float,
+                            capacity: int
+                            ) -> tuple[np.ndarray, np.ndarray | None, int]:
+    """`downsample_one_stage` carrying the kept rows' times -> ([capacity,3]
+    and [capacity] zero-padded, count); with ts None the times are None."""
+    lib = library()
+    xyz = np.ascontiguousarray(xyz, np.float32)
+    ts, out_ts = _times(ts, capacity)
+    out = np.zeros((capacity, 3), np.float32)
+    n = lib.svn_downsample_one_stage_ts(_fptr(xyz), _optr(ts), len(xyz), voxel,
+                                        _fptr(out), _optr(out_ts), capacity)
+    return out, out_ts, n
+
+
+def _stage_keep(xyz, min_range, max_range):
+    d2 = (xyz * xyz).sum(1)
+    return (d2 > np.float32(min_range) ** 2) & (d2 < np.float32(max_range) ** 2) \
+        & np.isfinite(d2)
+
+
 def stage_scan_numpy(xyz, min_range, max_range, capacity):
     """Plain version of `stage_scan`."""
     xyz = np.ascontiguousarray(xyz, np.float32)
-    d2 = (xyz * xyz).sum(1)
-    keep = (d2 > np.float32(min_range) ** 2) & (d2 < np.float32(max_range) ** 2) \
-        & np.isfinite(d2)
-    pts = xyz[keep][:capacity]
+    pts = xyz[_stage_keep(xyz, min_range, max_range)][:capacity]
     out = np.zeros((capacity, 3), np.float32)
     out[: len(pts)] = pts
     valid = np.arange(capacity) < len(pts)
     return out, valid, len(pts)
 
 
+def stage_scan_ts_numpy(xyz, ts, min_range, max_range, capacity):
+    """Plain version of `stage_scan_ts`."""
+    xyz = np.ascontiguousarray(xyz, np.float32)
+    ts = np.ascontiguousarray(ts, np.float32)
+    keep = _stage_keep(xyz, min_range, max_range)
+    pts, tt = xyz[keep][:capacity], ts[keep][:capacity]
+    out = np.zeros((capacity, 3), np.float32)
+    out_ts = np.zeros(capacity, np.float32)
+    out[: len(pts)] = pts
+    out_ts[: len(pts)] = tt
+    return out, out_ts, len(pts)
+
+
 def downsample_one_stage_numpy(xyz, voxel, capacity):
     """Plain version of `downsample_one_stage`: same selection and order."""
     xyz = np.ascontiguousarray(xyz, np.float32)
+    sel = _downsample_indices(xyz, voxel, capacity)
     out = np.zeros((capacity, 3), np.float32)
+    out[: len(sel)] = xyz[sel]
+    return out, len(sel)
+
+
+def downsample_one_stage_ts_numpy(xyz, ts, voxel, capacity):
+    """Plain version of `downsample_one_stage_ts`."""
+    xyz = np.ascontiguousarray(xyz, np.float32)
+    ts = np.ascontiguousarray(ts, np.float32)
+    sel = _downsample_indices(xyz, voxel, capacity)
+    out = np.zeros((capacity, 3), np.float32)
+    out_ts = np.zeros(capacity, np.float32)
+    out[: len(sel)] = xyz[sel]
+    out_ts[: len(sel)] = ts[sel]
+    return out, out_ts, len(sel)
+
+
+def _downsample_indices(xyz, voxel, capacity):
+    """The rows one downsample stage keeps, in output order."""
     if len(xyz) == 0:
-        return out, 0
+        return np.zeros(0, np.int64)
     bits, mask, half = 10, (1 << 10) - 1, 1 << 9
     g = np.floor(xyz / np.float32(voxel)).astype(np.int64)
     key = ((((g[:, 0] + half) & mask) << (2 * bits))
@@ -125,6 +208,4 @@ def downsample_one_stage_numpy(xyz, voxel, capacity):
     x = (x * np.uint32(0x846CA68B)) & np.uint32(0xFFFFFFFF)
     x ^= x >> 16
     rank = (x & np.uint32(0xFFFFFFFE)).astype(np.int32)
-    sel = sel[np.lexsort((key[sel], rank))][:capacity]
-    out[: len(sel)] = xyz[sel]
-    return out, len(sel)
+    return sel[np.lexsort((key[sel], rank))][:capacity]

@@ -3,11 +3,12 @@
 Port of `svnicp_tpu/runtime/ingest.py`: the IMU window bookkeeping, the
 raw-scan staging (`_pack_frame`, with per-point sweep times), the
 host-preprocessed staging (crop + stage-A downsample in native code,
-`_stage_scan_pre_untimed`), and the stage-ahead pair that runs frame k's
-staging on one worker thread while frame k-1 is dispatched (the native
-calls release the GIL). Every staging route packs the frame's IMU window on
-the calling thread when the frame is staged, as the JAX package does, and
-hands it to the step with the scan.
+`_stage_scan_pre_untimed`, carrying the kept rows' sweep times when the
+step deskews), the int16 upload of either (`quantize`), and the
+stage-ahead pair that runs frame k's staging on one worker thread while
+frame k-1 is dispatched (the native calls release the GIL). Every staging
+route packs the frame's IMU window on the calling thread when the frame is
+staged, as the JAX package does, and hands it to the step with the scan.
 The dispatch half stays in `runtime/pipeline.py`.
 """
 
@@ -21,6 +22,13 @@ from typing import NamedTuple
 import numpy as np
 
 from svnicp_tpu_torch.io import native
+
+
+def quantize(buf: np.ndarray) -> np.ndarray:
+    """preprocess.quantize_upload: rows on the 2^-8 m int16 grid, clipped at
+    +-128 m. A time column rides the same grid and clips at 127.996, as in
+    the JAX package (`runtime/ingest.py:84`); the step dequantizes."""
+    return np.clip(np.round(buf * 256.0), -32768, 32767).astype(np.int16)
 
 
 class ImuWindow(NamedTuple):
@@ -99,7 +107,8 @@ class IngestDriver:
         (scan [cap,3], n_points, ImuWindow). With per-point timestamps the
         first raw_capacity rows are padded uncropped, in their order, with
         the time as a 4th column (scan [cap,4]): the crop runs on the device
-        after deskew, as in the JAX package."""
+        after deskew, as in the JAX package. With quantize_upload the rows
+        are int16 (`quantize`)."""
         cap = self.cfg.preprocess.raw_capacity
         pp = self.cfg.preprocess
         with self.timer.span("preprocess"):
@@ -113,38 +122,49 @@ class IngestDriver:
                 rows = np.zeros((cap, 4), self.cfg.np_dtype)
                 rows[:n, :3] = points[:n]
                 rows[:n, 3] = np.asarray(timestamps[:n])
+            if pp.quantize_upload:
+                rows = quantize(rows)
         return rows, n, self._pack_imu(t)
 
-    def _stage_scan_pre_untimed(self, points: np.ndarray):
+    def _stage_scan_pre_untimed(self, points: np.ndarray, timestamps=None):
         """Native crop + the stage-A (0.5 voxel) downsample -> (to_map rows
-        [2*source_capacity,3], count). Pure, so it runs on the worker."""
+        [2*source_capacity,3], count); with per-point `timestamps` the kept
+        rows' times as a 4th column, for the device deskew; int16 rows with
+        quantize_upload. Pure, so it runs on the worker."""
         pp = self.cfg.preprocess
-        pts, _, n = native.stage_scan(self._apply_extrinsic(points),
-                                      pp.min_range, pp.max_range, pp.raw_capacity)
-        map_buf, n_map = native.downsample_one_stage(
-            pts[: int(n)], 0.5 * pp.voxel_size, 2 * self.cfg.icp.source_capacity)
+        pts, ts, n = native.stage_scan_ts(self._apply_extrinsic(points), timestamps,
+                                          pp.min_range, pp.max_range, pp.raw_capacity)
+        map_buf, map_ts, n_map = native.downsample_one_stage_ts(
+            pts[:n], None if ts is None else ts[:n], 0.5 * pp.voxel_size,
+            2 * self.cfg.icp.source_capacity)
+        if map_ts is not None:
+            map_buf = np.concatenate([map_buf, map_ts[:, None]], axis=1)
+        if pp.quantize_upload:
+            return quantize(map_buf), n_map
         return map_buf.astype(self.cfg.np_dtype, copy=False), n_map
 
-    def _pack_frame_pre(self, t: float, points: np.ndarray):
+    def _pack_frame_pre(self, t: float, points: np.ndarray, timestamps=None):
         with self.timer.span("preprocess"):
-            ds_buf, n_map = self._stage_scan_pre_untimed(points)
+            ds_buf, n_map = self._stage_scan_pre_untimed(points, timestamps)
         return ds_buf, n_map, self._pack_imu(t)
 
-    def _timed_stage_pre(self, points):
+    def _timed_stage_pre(self, points, timestamps):
         """Worker-thread staging with its own clock, so preprocessing time
         is attributed to the right frame."""
         t0 = time.perf_counter()
-        out = self._stage_scan_pre_untimed(points)
+        out = self._stage_scan_pre_untimed(points, timestamps)
         return out, time.perf_counter() - t0
 
-    def _feed_scan_ahead(self, t: float, points: np.ndarray, init_particles):
-        """Submit frame t's staging to the worker and dispatch the frame
-        staged before it (one frame of output latency; flush() drains)."""
+    def _feed_scan_ahead(self, t: float, points: np.ndarray, timestamps,
+                         init_particles):
+        """Submit frame t's staging (points with their times, if any) to the
+        worker and dispatch the frame staged before it (one frame of output
+        latency; flush() drains)."""
         if self._stage_pool is None:
             self._stage_pool = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="svnicp-stage")
         imu = self._pack_imu(t)
-        fut = self._stage_pool.submit(self._timed_stage_pre, points)
+        fut = self._stage_pool.submit(self._timed_stage_pre, points, timestamps)
         idx = self._frames
         self._frames += 1
         self._last_frame_time = t

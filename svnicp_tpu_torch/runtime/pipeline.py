@@ -4,7 +4,9 @@ Port of `svnicp_tpu/runtime/pipeline.py` for both estimators: the
 constant-velocity ICP estimator and the error-state Kalman filter. A frame:
 in KF mode propagate the ESKF over the frame's IMU window; derive the
 stage-B source cloud on the device (`pointcloud.downsample_uniform` of the
-host's stage-A cloud, or deskew, crop and both stages from the raw scan);
+host's stage-A cloud, deskewed first when it carries sweep times; or from
+the raw scan: LOAM feature selection or range-image segmentation, deskew,
+crop and both stages);
 predict the pose (constant velocity, or the ESKF's nav pose); draw a fresh
 particle prior; cut the local map (`voxmap.query_radius`); register
 (`svn.register`: stage-1 kernel, the align loop of moments and
@@ -31,9 +33,11 @@ import torch
 
 from svnicp_tpu_torch.config import PipelineConfig
 from svnicp_tpu_torch.core import eskf as eskf_mod
+from svnicp_tpu_torch.core import features
 from svnicp_tpu_torch.core import geometry as geo
 from svnicp_tpu_torch.core import imu as imu_mod
 from svnicp_tpu_torch.core import pointcloud as pc
+from svnicp_tpu_torch.core import segmentation as seg
 from svnicp_tpu_torch.core import smoother, svgd, svn, voxmap
 from svnicp_tpu_torch.device import resolve_device
 from svnicp_tpu_torch.runtime.ingest import ImuWindow, IngestDriver
@@ -82,18 +86,14 @@ class FrameOutput(NamedTuple):
     kf_gain: torch.Tensor      # [15,6] last Kalman gain (zeros in ICP mode)
     kf_cov_diag: torch.Tensor  # [15]
     history: torch.Tensor      # [0,P,6]: save_particles is not ported
+    # (n_edge, n_planar, n_ground) of preprocess.feature_select, else None
+    feature_counts: torch.Tensor | None = None
 
 
 def check_supported(cfg: PipelineConfig) -> None:
     """The pipeline options this port implements so far; others raise."""
     pp = cfg.preprocess
     unsupported = {
-        # the host route's timestamp channel (native stage_scan_ts and
-        # downsample_one_stage_ts) is not ported; deskew runs on the raw route
-        "preprocess.deskew with host_downsample": pp.deskew and pp.host_downsample,
-        "preprocess.use_segmentation": pp.use_segmentation,
-        "preprocess.feature_select": pp.feature_select,
-        "preprocess.quantize_upload": pp.quantize_upload,
         "dispatch_batch": cfg.dispatch_batch != 1,
         "save_particles": cfg.save_particles,
         "posegraph": cfg.posegraph.enabled,
@@ -163,27 +163,83 @@ def _predict_pose(cfg: PipelineConfig, state: OdometryState, time: torch.Tensor)
     return geo.transform_compose(state.pose_r, state.pose_t, ri, ti)
 
 
+def _deskew_motion(state: OdometryState) -> torch.Tensor:
+    """The motion deskew undoes: log(T_{k-2}^-1 T_{k-1}), zero before frame 2
+    (ref: OdometryPipeline.cpp:425-432)."""
+    if state.frame_idx < 2:
+        return state.pose_t.new_zeros(6)
+    return geo.se3_log(*geo.transform_compose(
+        *geo.transform_inverse(state.prev_r, state.prev_t),
+        state.pose_r, state.pose_t))
+
+
+def _segment(cfg: PipelineConfig, points, valid, timestamps):
+    """preprocess.use_segmentation: the segmented cloud -> (points, valid,
+    timestamps), the times carried through the projection when deskewing."""
+    pp = cfg.preprocess
+    sensor = seg.SENSORS[pp.sensor_model]
+    if pp.deskew and timestamps is not None:
+        cloud, timestamps = seg.segment_cloud(points, valid, sensor,
+                                              pp.raw_capacity, timestamps=timestamps)
+    else:
+        cloud = seg.segment_cloud(points, valid, sensor, pp.raw_capacity)
+    return cloud.points, cloud.valid, timestamps
+
+
+def selection_options(cfg: PipelineConfig) -> dict:
+    """The keywords of `features.select_features` that the config sets."""
+    pp = cfg.preprocess
+    return dict(
+        sensor=seg.SENSORS[pp.sensor_model], capacity=cfg.icp.source_capacity,
+        max_range=pp.max_range, sectors=pp.feature_sectors,
+        edge_k=pp.feature_edge_per_sector, planar_k=pp.feature_planar_per_sector,
+        ground_cap=pp.feature_ground_cap, edge_threshold=pp.feature_edge_threshold,
+        planar_threshold=pp.feature_planar_threshold,
+        occlusion_threshold=pp.feature_occlusion_threshold)
+
+
+def select_features(cfg: PipelineConfig, points, valid, timestamps=None
+                    ) -> features.SelectedFeatures:
+    """preprocess.feature_select: the configured LOAM selection of a raw
+    sweep, `source_capacity` picks at most (times zero when absent)."""
+    ts = points.new_zeros(points.shape[0]) if timestamps is None else timestamps
+    return features.select_features(points, valid, ts, **selection_options(cfg))
+
+
 def _preprocess(cfg: PipelineConfig, state: OdometryState, points, valid,
                 timestamps=None):
-    """Deskew (with per-point times and preprocess.deskew) + crop +
-    two-stage downsample on the device (ref: OdometryPipeline.cpp:549-560)
-    -> (cropped, to_map, source). Deskew undoes the last relative motion
-    log(T_{k-2}^-1 T_{k-1}), zero before frame 2 (ref: :425-432)."""
+    """The raw route's preprocessing on the device, in the JAX package's
+    order (ref: OdometryPipeline.cpp:549-560) -> (cropped, to_map, source,
+    selected features or None):
+    - with preprocess.feature_select, LOAM features selected on the raw
+      (skewed) sweep, which become the source;
+    - with preprocess.use_segmentation, the segmented cloud replaces the
+      scan;
+    - with preprocess.deskew and per-point times, the scan and, apart, the
+      selection (with its own times and validity) deskewed;
+    - crop; to_map the 0.5-voxel downsample; the source the 1.5-voxel
+      downsample of to_map, or the cropped selection."""
     pp = cfg.preprocess
+    sel = None
+    if pp.feature_select:
+        sel = select_features(cfg, points, valid, timestamps)
+    if pp.use_segmentation:
+        points, valid, timestamps = _segment(cfg, points, valid, timestamps)
     if pp.deskew and timestamps is not None:
-        if state.frame_idx >= 2:
-            delta_xi = geo.se3_log(*geo.transform_compose(
-                *geo.transform_inverse(state.prev_r, state.prev_t),
-                state.pose_r, state.pose_t))
-        else:
-            delta_xi = points.new_zeros(6)
+        delta_xi = _deskew_motion(state)
         points = pc.deskew(points, valid, timestamps, delta_xi)
+        if sel is not None:
+            sel = sel._replace(points=pc.deskew(sel.points, sel.valid,
+                                                sel.timestamps, delta_xi))
     cropped = pc.crop(pc.PaddedCloud(points, valid), pp.min_range, pp.max_range)
     to_map = pc.downsample_uniform(cropped, 0.5 * pp.voxel_size,
                                    cfg.icp.source_capacity * 2)
-    source = pc.downsample_uniform(to_map, 1.5 * pp.voxel_size,
-                                   cfg.icp.source_capacity)
-    return cropped, to_map, source
+    if sel is not None:
+        source = pc.crop(features.as_cloud(sel), pp.min_range, pp.max_range)
+    else:
+        source = pc.downsample_uniform(to_map, 1.5 * pp.voxel_size,
+                                       cfg.icp.source_capacity)
+    return cropped, to_map, source, sel
 
 
 def _zeros_output(cfg, state, guess_r, guess_t, map_points, map_dropped,
@@ -212,11 +268,15 @@ def _insert(cfg: PipelineConfig, vmap, cloud, pose_r, pose_t):
 
 
 def bootstrap(cfg: PipelineConfig, state: OdometryState, points, valid,
-              time: torch.Tensor, imu: ImuWindow | None = None):
-    """First frame: crop the raw scan and seed the map at the predicted
-    pose, no alignment and no IMU predict: the frame's window is consumed
-    unused (ref: OdometryPipeline.cpp:583-591)."""
+              time: torch.Tensor, imu: ImuWindow | None = None,
+              timestamps=None):
+    """First frame: crop the raw (or segmented) scan and seed the map at the
+    predicted pose, no alignment and no IMU predict: the frame's window is
+    consumed unused (ref: OdometryPipeline.cpp:583-591). Deskew is the
+    identity before frame 2, and a feature selection would go unused."""
     pp = cfg.preprocess
+    if pp.use_segmentation:
+        points, valid, _ = _segment(cfg, points, valid, timestamps)
     cropped = pc.crop(pc.PaddedCloud(points, valid), pp.min_range, pp.max_range)
     guess_r, guess_t = _predict_pose(cfg, state, time)
     new_map, dropped = _insert(cfg, state.vmap, cropped, guess_r, guess_t)
@@ -374,18 +434,33 @@ def odometry_step(cfg: PipelineConfig, state: OdometryState, to_map, source,
     return new_state, out
 
 
+def dequantize(buf: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Rows in the working dtype; int16 rows (preprocess.quantize_upload)
+    come off the 2^-8 m grid."""
+    if buf.dtype == torch.int16:
+        return buf.to(dtype) * 2.0 ** -8
+    return buf.to(dtype)
+
+
 def odometry_step_pre(cfg: PipelineConfig, state: OdometryState, ds_buf,
                       n_map: int, time: torch.Tensor, init_particles=None,
                       skip_insert: bool = False, imu: ImuWindow | None = None):
     """One frame from a host-preprocessed cloud (the JAX package's
     `odometry_step_packed_pre`): ds_buf [2*source_capacity,3] holds the
-    stage-A rows; the stage-B source is derived on the device with the same
-    selection the host would make."""
+    stage-A rows (int16 with quantize_upload); the stage-B source is
+    derived on the device with the same selection the host would make. A
+    4th column holds the rows' sweep times: with preprocess.deskew the
+    stage-A cloud is deskewed with them first (normalised over these rows,
+    not the scan's)."""
     device, dtype = state.pose_t.device, state.pose_t.dtype
     map_cap = 2 * cfg.icp.source_capacity
-    buf = torch.as_tensor(ds_buf).to(device=device, dtype=dtype)
+    buf = dequantize(torch.as_tensor(ds_buf).to(device), dtype)
     to_map = pc.PaddedCloud(buf[:map_cap, :3],
                             torch.arange(map_cap, device=device) < n_map)
+    if cfg.preprocess.deskew and buf.shape[1] == 4:
+        to_map = pc.PaddedCloud(
+            pc.deskew(to_map.points, to_map.valid, buf[:map_cap, 3],
+                      _deskew_motion(state)), to_map.valid)
     source = pc.downsample_uniform(to_map, 1.5 * cfg.preprocess.voxel_size,
                                    cfg.icp.source_capacity)
     return odometry_step(cfg, state, to_map, source, time, init_particles,
@@ -399,9 +474,13 @@ def odometry_step_raw(cfg: PipelineConfig, state: OdometryState, points,
     """One frame from the raw padded scan (cropped on the host, or with
     per-point `timestamps` uncropped): preprocess on the device, then
     step."""
-    _, to_map, source = _preprocess(cfg, state, points, valid, timestamps)
-    return odometry_step(cfg, state, to_map, source, time, init_particles,
-                         skip_insert, imu)
+    _, to_map, source, sel = _preprocess(cfg, state, points, valid, timestamps)
+    state, out = odometry_step(cfg, state, to_map, source, time,
+                               init_particles, skip_insert, imu)
+    if sel is not None:
+        out = out._replace(feature_counts=torch.stack(
+            [sel.n_edge, sel.n_planar, sel.n_ground]))
+    return state, out
 
 
 class LIOPipeline(IngestDriver):
@@ -441,9 +520,9 @@ class LIOPipeline(IngestDriver):
         return n > 1 and frame_idx % n != 0
 
     def _upload(self, rows: np.ndarray, n: int):
-        """Packed rows -> (points [cap,3], valid [cap], timestamps [cap] or
-        None) on the device."""
-        buf = torch.from_numpy(rows).to(self.device)
+        """Packed rows (int16 with quantize_upload) -> (points [cap,3],
+        valid [cap], timestamps [cap] or None) on the device."""
+        buf = dequantize(torch.from_numpy(rows).to(self.device), _dtype(self.cfg))
         ts = buf[:, 3] if buf.shape[1] == 4 else None
         return (buf[:, :3], torch.arange(buf.shape[0], device=self.device) < n,
                 ts)
@@ -453,28 +532,34 @@ class LIOPipeline(IngestDriver):
         """Process one LiDAR scan [N,3], with optional per-point times [N]
         (any scale: deskew normalises them per scan); returns its
         FrameOutput, or None when the frame-gap gate drops it or stage-ahead
-        holds it back a frame. Timestamps take the raw route; without
-        preprocess.deskew they are carried and ignored, as in the JAX
-        package."""
+        holds it back a frame. The routing is the JAX package's: the host
+        route (host_downsample, after the bootstrap frame, without
+        segmentation or feature selection) takes a scan without times, or
+        with times when deskewing (they ride with the stage-A rows); every
+        other frame takes the raw route, where times without
+        preprocess.deskew are carried and ignored."""
         if (self._last_frame_time is not None
                 and t - self._last_frame_time < self.cfg.lio.frame_gap_seconds):
             return None
-        host_ds = (self.cfg.preprocess.host_downsample and self._frames > 0
-                   and timestamps is None)
+        pp = self.cfg.preprocess
+        host_ds = (pp.host_downsample and not pp.use_segmentation
+                   and not pp.feature_select and self._frames > 0
+                   and (timestamps is None or pp.deskew))
+        ds_ts = timestamps if (host_ds and pp.deskew) else None
         if self._frames == 0:
             rows, n, imu = self._pack_frame(t, points, timestamps)
             with self.timer.span("dispatch"):
-                pts, valid, _ = self._upload(rows, n)
+                pts, valid, ts = self._upload(rows, n)
                 self.state, out = bootstrap(self.cfg, self.state, pts, valid,
-                                            self._time(t), imu)
+                                            self._time(t), imu, ts)
             self._record_frame(t, out)
             return out
         if host_ds and self.cfg.stage_ahead:
-            return self._feed_scan_ahead(t, points, init_particles)
+            return self._feed_scan_ahead(t, points, ds_ts, init_particles)
         if self._pending:
             self.flush()    # staging mode changed mid-stream: keep order
         if host_ds:
-            ds_buf, n_map, imu = self._pack_frame_pre(t, points)
+            ds_buf, n_map, imu = self._pack_frame_pre(t, points, ds_ts)
             out = self._dispatch_pre(t, ds_buf, n_map, imu, self._frames,
                                      init_particles)
         else:

@@ -313,3 +313,89 @@ def test_kernel_medians_are_exact(dev, p, copies):
     out_p = stein.stein_update_plain(*args, None, max_dist=3.0)
     for got, want in zip(out_k, out_p):
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_plane_moments_at_the_features_shape(dev):
+    """B2 at configs/tpu_features.yaml's shape (P=10, K=32, B=4096: 54 of
+    the 64 particle slots of a block masked) against the plain version run
+    in float64: the kernel's error at most twice the float32 plain
+    version's (plus 1e-7 of the largest entry), repeats bit-identical."""
+    p, b, k = 10, 4096, 32
+    g = torch.Generator().manual_seed(8)
+    src = torch.randn((b, 3), generator=g) * 20
+    dirs = torch.nn.functional.normalize(torch.randn((b, k, 3), generator=g), dim=-1)
+    cand = src[:, None, :] + dirs * (0.1 + 0.1 * torch.arange(k))[None, :, None]
+    cvalid = torch.rand((b, k), generator=g) > 0.1
+    normals = torch.nn.functional.normalize(torch.randn((b, 3), generator=g), dim=-1)
+    valid = torch.rand(b, generator=g) > 0.3
+    xi = torch.randn((p, 6), generator=g) * torch.tensor([0.05] * 3 + [0.005] * 3)
+    params = torch.cat([geo.so3_exp(xi[:, 3:]).reshape(p, 9), xi[:, :3]], -1)
+    src, cand, cvalid, normals, valid, params = (
+        x.to(dev) for x in (src, cand, cvalid, normals, valid, params))
+    feat, bias = svn.correspondence_features(src, cand, cvalid)
+    prep = nn.prepare_moments_plane(feat, bias, cand, src, normals, valid)
+    h_k, b_k = nn.plane_moments(params.contiguous(), prep, 3.0)
+    h_k2, b_k2 = nn.plane_moments(params.contiguous(), prep, 3.0)
+    assert torch.equal(h_k, h_k2) and torch.equal(b_k, b_k2)
+    h_p, b_p = nn.plane_moments_plain(params, prep, 3.0)
+    h64, b64 = nn.plane_moments_plain(params.double(),
+                                      type(prep)(*(x.double() for x in prep)), 3.0)
+    for got, plain, ref in ((h_k, h_p, h64), (b_k, b_p, b64)):
+        e_k = (got.double() - ref).abs().max().item()
+        e_p = (plain.double() - ref).abs().max().item()
+        assert e_k <= 2 * e_p + 1e-7 * ref.abs().max().item(), (e_k, e_p)
+
+
+def test_preprocessing_on_the_card_matches_the_cpu(dev):
+    """Two HDL-64 proxy sweeps through configs/tpu_features.yaml's feature
+    selection and through range-image segmentation, on the card and on the
+    CPU (`chip_smoke.compare_preprocess`: both round every step alike, so
+    the picks are expected identical; any that differ must stay under 1%).
+    The second sweep replays the CUDA graphs the first one captured."""
+    import pathlib
+    import sys
+
+    from svnicp_tpu_torch import config as cfg_mod
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import chip_smoke
+
+    cfg = cfg_mod.from_yaml(str(root / "configs" / "tpu_features.yaml"))
+    events, _, _ = chip_smoke.proxy_sequence(4)
+    for frame in chip_smoke.proxy_frames(events)[2:4]:
+        d_sel, n_sel, d_seg, n_seg, _ = chip_smoke.compare_preprocess(cfg, frame, dev)
+        print(f"select_features: {d_sel} of {n_sel} picks differ; "
+              f"segment_cloud: {d_seg} of {n_seg} points differ")
+
+
+def test_atan2f_fma_and_sqrt_round_alike_on_the_card(dev):
+    """The float32 steps the projection depends on give the same bits on
+    the card as on the CPU."""
+    from svnicp_tpu_torch.core import segmentation as seg
+
+    g = torch.Generator().manual_seed(3)
+    y = torch.randn(1 << 20, generator=g) * 30
+    x = torch.randn(1 << 20, generator=g) * 30
+    x[:100] = 0.0
+    y[100:200] = 0.0
+    for fn in (seg.atan2f, lambda a, b: seg.fma(a, b, a * b),
+               lambda a, b: seg.sqrt(a * a + b * b)):
+        assert torch.equal(fn(y.to(dev), x.to(dev)).cpu(), fn(y, x))
+
+
+def test_cuda_graph_replays_on_new_inputs(dev):
+    """`core.cuda_graph.replay`: the first call captures, later calls
+    replay on their own inputs, and earlier outputs are copies that a
+    replay does not overwrite."""
+    from svnicp_tpu_torch.core import cuda_graph
+
+    def fn(x, m):
+        return torch.where(m, x * 2.0 + 1.0, x), (x * m).sum()
+
+    xs = [torch.randn(1000, device=dev) for _ in range(3)]
+    ms = [torch.rand(1000, device=dev) > 0.5 for _ in range(3)]
+    outs = [cuda_graph.replay("test", fn, x, m) for x, m in zip(xs, ms)]
+    for (a, s), x, m in zip(outs, xs, ms):
+        want_a, want_s = fn(x, m)
+        assert torch.equal(a, want_a) and torch.equal(s, want_s)

@@ -55,7 +55,7 @@ def _svgd_kernel_route(cfg):
 
 
 @pytest.mark.parametrize("name", ["tpu_plane", "geode_alpha", "subt_mrs",
-                                  "generic_svgd"])
+                                  "generic_svgd", "tpu_features", "subt_mrs_fast"])
 def test_pipeline_defaults_to_the_card(name):
     """The ported configurations construct on the CPU when asked, and the
     default device is the card."""
@@ -107,9 +107,8 @@ def _svgd_variant(case):
     if case == "as_written":
         return cfg
     cfg = _svgd_kernel_route(cfg)
-    if case == "deskew_with_host_downsample":
-        return dataclasses.replace(cfg, preprocess=dataclasses.replace(
-            cfg.preprocess, host_downsample=True))
+    if case == "dispatch_batch":
+        return dataclasses.replace(cfg, dispatch_batch=4)
     if case == "use_minibatch":
         return dataclasses.replace(cfg, icp=dataclasses.replace(
             cfg.icp, use_minibatch=True, batch_size=1024))
@@ -119,8 +118,8 @@ def _svgd_variant(case):
 @pytest.mark.parametrize("case,name", [
     # the file leaves SVGD on the XLA route (first index at ties)
     ("as_written", "use_pallas"),
-    # deskew's timestamp channel on the host route is not ported
-    ("deskew_with_host_downsample", "deskew with host_downsample"),
+    # the batched step (one launch for several frames) is not ported
+    ("dispatch_batch", "dispatch_batch"),
     # JAX draws the minibatch with its PRNG, off the kernel route
     ("use_minibatch", "use_minibatch"),
     ("svd", "method=svd")])

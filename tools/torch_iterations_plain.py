@@ -56,9 +56,9 @@ def main() -> int:
     times, rots, trans, scans = cs.bench_sequence(n)
     gtimes, grots, gtrans, gscans, gimu = cs.geode_sequence(n)
     vtimes, vsweeps, vrots, vtrans = cs.svgd_sequence(n)
-    frames = [(times[i], scans[i], None, None) for i in range(n)]
-    gframes = [(gtimes[i], gscans[i], gimu[i], None) for i in range(n)]
-    vframes = [(vtimes[i], vsweeps[i][0], None, vsweeps[i][1]) for i in range(n)]
+    frames = [(times[i], scans[i], [], None) for i in range(n)]
+    gframes = [(gtimes[i], gscans[i], [gimu[i]], None) for i in range(n)]
+    vframes = [(vtimes[i], vsweeps[i][0], [], vsweeps[i][1]) for i in range(n)]
 
     kernels = dict(b1=nn.bucketed_candidates, b3=stein.stein_update, b5=nn.nn_match,
                    moments=dict(nn.MOMENTS))
