@@ -71,7 +71,29 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    path: each option's launch counts (`expected_launches`), its frames
    aligned as in the JAX package's run of it and ATE under
    `option_limit`; with save_particles the history's rows, with the voxel
-   candidates K = 108 padded to 112.
+   candidates K = 108 padded to 112;
+12. loop path: tools/loop_study.py's ring-cloud loop played from a log,
+   through the `stream` CLI: the port's `record_proxy` writes 246
+   motion-distorted HDL-64 proxy frames of a 6 m circle with the scans
+   capped at 9 m (LOOP_LOG), and configs/tpu_features.yaml with
+   loop_study's pose-graph block (LOOP_POSEGRAPH: keyframes every 1.5 m,
+   loop verification by a P=8, K=32, 60-iteration registration on the
+   kernel route, re-anchoring on) plays it once with the graph and once
+   without. Checked: every frame aligned as in the JAX package's own
+   float32 run (tests/test_torch_loop_reference.py), at least one loop
+   closure and one accepted re-anchor and none rejected, a final position
+   error below the run without the graph, ATE under LOOP_ATE_LIMIT, and the
+   launches: B1 = frames - 1 + loop verifications, B2 = B3 = odometry
+   iterations + verification iterations (counted by `LoopProbe`, which
+   wraps `PoseGraphDriver`'s methods while installed). It prints the closures,
+   the keyframes, frames/s with and without the graph, and the wall time
+   of `_update_posegraph` per keyframe, `_verify_loop`, `optimize` and
+   `apply_reanchor`; then B1 (k=32, 2,048 x 2,048), B2 and B3 at P=8 on
+   the first closure's own keyframe clouds against their plain versions,
+   repeats bit-identical, with times and bounds;
+13. CLI: `demo --frames 8` through `cli.main` with a JSONL output whose
+   records are counted per frame, then `record` of a 10-frame synthetic
+   log and `stream` of it (the default configuration, the XLA route).
 Before the paths, one SubT-fast sweep's voxel keys are computed on the
 card and on the CPU: none may differ.
 Each path's launch counts are set to 0 just before it and read just after.
@@ -80,9 +102,11 @@ the first B2 and B3 kernels) and names the frames that moved; the SVGD
 path, which runs neither, must repeat its count and the ATE of its B1 and
 B5 (SVGD_ATE) exactly.
 With `--profile`, a torch.profiler trace of 5 more frames of each path
-(device-busy share, kernels by device time).
+(device-busy share, kernels by device time), and of the loop path's last
+10 frames with the graph (where the loop closes).
 The last lines are the kernel table as JSON (`launches` summed over all
-paths and options), the run's wall time, the line `nvidia-smi --query-gpu=name,power.limit
+paths, options and the CLI; B1-B3 once more at the loop verification's
+shapes, with its launches), the run's wall time, the line `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader` prints, and {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result. It imports nothing of JAX or of
 the JAX package. The whole run takes well under its 1200 s limit; if it ever
@@ -211,6 +235,27 @@ OPTIONS_JAX = {
     "use_minibatch": (0.32933851756054316, [True, True, True, True, True, True, True, True],
         [0, 30, 30, 30, 30, 30, 30, 30]),
 }
+# The loop path: the ring-cloud loop of tools/loop_study.py played from an
+# SVNL log through the port's `stream` CLI. The log is the port's
+# `io/stream.record_proxy` with loop_study's parameters; the configuration
+# is configs/tpu_features.yaml with loop_study's pose-graph block, written
+# as a YAML beside the log. LOOP_JAX_* come from the JAX package's own
+# float32 run of the same log and configuration on the CPU
+# (tests/test_torch_loop_reference.py run as a script); the ATE limit is
+# max(1.5 x, x + 0.05 m) of its ATE.
+LOOP_LOG = dict(n_frames=246, path_shape="loop", loop_radius=6.0, scan_range=9.0,
+                seed=3)
+LOOP_POSEGRAPH = dict(enabled=True, reanchor=True, keyframe_trans_threshold=1.5,
+                      loop_min_separation=12, loop_radius=4.0, loop_iterations=60,
+                      loop_knn=32, loop_use_pallas=True)
+LOOP_JAX_ATE = 1.9020701645814175
+LOOP_ATE_LIMIT = max(1.5 * LOOP_JAX_ATE, LOOP_JAX_ATE + 0.05)
+LOOP_JAX_ALIGN_OK = [True] * 246
+LOOP_JAX_FINAL_ERR = 5.015941308642145
+LOOP_JAX_CLOSURES = [(2, 22), (3, 22)]
+# the loop verification's kernel shapes (B1 k=32 on 2,048 x 2,048 rows, B2
+# and B3 at P=8), checked and timed apart and listed apart in the JSON line
+LOOP_SHAPES = ("B1 (loop)", "B2 (loop)", "B3 (loop)")
 # kernels whose ptxas report must show no spill
 NO_SPILL = ("stein.cu", "plane_moments.cu", "point_moments.cu", "nn_match.cu", "stage1.cu")
 
@@ -418,6 +463,29 @@ def proxy_frames(events):
             frames.append((ev[1], ev[2], imus, ev[3]))
             imus = []
     return frames
+
+
+def write_loop_files(directory: str, posegraph: bool = True) -> tuple[str, str, str]:
+    """The loop path's inputs in `directory`: the SVNL log (the port's
+    `record_proxy` with LOOP_LOG, written once), its mid-sweep poses as
+    .npy, and configs/tpu_features.yaml with the LOOP_POSEGRAPH block
+    appended (without it when `posegraph` is False) -> (log, gt, config)."""
+    from svnicp_tpu_torch.io import stream
+
+    log = os.path.join(directory, "loop.svnl")
+    gt = os.path.join(directory, "loop_gt.npy")
+    if not (os.path.exists(log) and os.path.exists(gt)):
+        np.save(gt, stream.record_proxy(log, **LOOP_LOG))
+    cfg = os.path.join(directory, "loop_graph.yaml" if posegraph else "loop_odometry.yaml")
+    with open(os.path.join(ROOT, "configs", "tpu_features.yaml")) as f:
+        text = f.read()
+    if posegraph:
+        text += "posegraph:\n" + "".join(
+            f"  {k}: {str(v).lower() if isinstance(v, bool) else v}\n"
+            for k, v in LOOP_POSEGRAPH.items())
+    with open(cfg, "w") as f:
+        f.write(text)
+    return log, gt, cfg
 
 
 def svgd_config():
@@ -1167,6 +1235,319 @@ def check_preprocess(cfg, frames, dev, smi) -> None:
           f"segment_cloud {seg_ms:.4f} ms on the device  [{smi}]")
 
 
+def time_stage1(s_, sv_, t_, tv_, k_):
+    """B1's device time (both launches: the target prep and the search),
+    wrapper time back to back, plain time and bound on these operands."""
+    from svnicp_tpu_torch.kernels import nn
+
+    n_src, n_tgt = int(sv_.sum()), int(tv_.sum())
+    call = cuda_time_ms(lambda: nn.bucketed_candidates(s_, t_, sv_, tv_, k_), 20)
+    # both launches: the target prep and the search
+    ms = device_ms(lambda: nn.bucketed_candidates(s_, t_, sv_, tv_, k_), 20,
+                   ["stage1_prep_kernel", "stage1_kernel"])
+    plain = device_ms(lambda: nn.bucketed_candidates_plain(s_, t_, sv_, tv_, k_), 5)
+    b_ms, b_by = bound_ms(8.0 * n_src * n_tgt,
+                          s_.numel() * 4 + sv_.numel() + t_.numel() * 4 + tv_.numel()
+                          + s_.shape[0] * k_ * 16)
+    return dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+
+
+def time_plane_moments(params_, prep_, icp_):
+    """B2's device time (both launches), wrapper time, plain time and bound."""
+    from svnicp_tpu_torch.kernels import nn
+
+    md = icp_.max_dist
+    call = cuda_time_ms(lambda: nn.plane_moments(params_, prep_, md), 50)
+    # both launches: the moments and the pass that sums the tiles into H, b
+    ms = device_ms(lambda: nn.plane_moments(params_, prep_, md), 50,
+                   ["plane_moments_kernel", "plane_system_kernel"])
+    plain = device_ms(lambda: nn.plane_moments_plain(params_, prep_, md), 10)
+    # B2 reads a normal with each point and computes n.c once per slot
+    b_ms, b_by = moments_bound(params_, prep_, icp_.knn_count, point_floats=6,
+                               slot_ops=10.0, point_ops=130.0)
+    return dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+
+
+def time_point_moments(params_, prep_, icp_):
+    """B4's device time (both launches), wrapper time, plain time and bound."""
+    from svnicp_tpu_torch.kernels import nn
+
+    md = icp_.max_dist
+    call = cuda_time_ms(lambda: nn.point_moments(params_, prep_, md), 50)
+    ms = device_ms(lambda: nn.point_moments(params_, prep_, md), 50,
+                   ["point_moments_kernel", "point_system_kernel"])
+    plain = device_ms(lambda: nn.point_moments_plain(params_, prep_, md), 10)
+    b_ms, b_by = moments_bound(params_, prep_, icp_.knn_count, point_floats=3,
+                               slot_ops=5.0, point_ops=150.0)
+    return dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+
+
+def log_frames(log: str) -> list:
+    """An SVNL log's packets as frames (stamp, points, [IMU samples before
+    the scan], per-point times), for `feed` and `profile_frames`."""
+    from svnicp_tpu_torch.io import stream
+
+    frames, imus = [], []
+    with open(log, "rb") as f:
+        for pkt in stream.StreamReader(f):
+            if isinstance(pkt, stream.ImuPacket):
+                imus.append((pkt.stamp, pkt.acc, pkt.gyro))
+            else:
+                frames.append((pkt.stamp, pkt.points, imus, pkt.timestamps))
+                imus = []
+    return frames
+
+
+class LoopProbe:
+    """Wraps `PoseGraphDriver._verify_loop`, `_update_posegraph` and
+    `apply_reanchor` and `PoseGraph.optimize` while installed, recording
+    each call's wall time and each verification's registration iterations
+    (the launches they make are read from the kernels' counts)."""
+
+    def __init__(self):
+        self.times = {"update": [], "verify": [], "optimize": [], "reanchor": []}
+        self.loop_iters: list[int] = []
+        self.keyframes_added = 0
+
+    def __enter__(self):
+        from svnicp_tpu_torch.core import svn
+        from svnicp_tpu_torch.runtime import posegraph, posegraph_driver
+
+        drv, pg = posegraph_driver.PoseGraphDriver, posegraph.PoseGraph
+        self._saved = [(drv, "_verify_loop", drv._verify_loop),
+                       (drv, "_update_posegraph", drv._update_posegraph),
+                       (drv, "apply_reanchor", drv.apply_reanchor),
+                       (pg, "optimize", pg.optimize)]
+        probe = self
+
+        def timed(key, fn):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    probe.times[key].append(time.perf_counter() - t0)
+            return call
+
+        verify = drv._verify_loop
+
+        def counted_verify(self_, old, cur):
+            register = svn.register
+
+            def reg(*a, **k):
+                res = register(*a, **k)
+                probe.loop_iters.append(res.iterations)
+                return res
+            svn.register = reg
+            try:
+                return verify(self_, old, cur)
+            finally:
+                svn.register = register
+
+        update = drv._update_posegraph
+
+        def counted_update(self_, t, out, pts):
+            n = len(self_.posegraph.nodes_r)
+            update(self_, t, out, pts)
+            probe.keyframes_added += len(self_.posegraph.nodes_r) > n
+
+        drv._verify_loop = timed("verify", counted_verify)
+        drv._update_posegraph = timed("update", counted_update)
+        drv.apply_reanchor = timed("reanchor", drv.apply_reanchor)
+        pg.optimize = timed("optimize", pg.optimize)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def run_loop_cli(log, gt, cfg_path, probe=None):
+    """The `stream` CLI on the loop log with every kernel's count set to 0
+    just before and read just after -> (pipeline, summary, launches)."""
+    import contextlib
+
+    import torch
+
+    from svnicp_tpu_torch import cli
+
+    for key in KERNELS:
+        _wrapper(key).launches = 0
+    with probe or contextlib.nullcontext():
+        pipe, summary = cli.main(["stream", "--log", log, "--config", cfg_path,
+                                  "--gt", gt])
+    torch.cuda.synchronize()
+    return pipe, summary, {key: _wrapper(key).launches for key in KERNELS}
+
+
+def loop_operands(pipe, dev):
+    """The loop verification's own B1-B3 operands from a finished run: the
+    first closure's keyframe clouds (else the first and last keyframes),
+    the source moved to the graph's relative guess -> (src, sv, tgt, tv,
+    the verification's ICP config)."""
+    import dataclasses
+
+    import torch
+
+    pg = pipe.cfg.posegraph
+    old, cur = pipe.loop_closures[0] if pipe.loop_closures else (
+        0, len(pipe.posegraph.nodes_r) - 1)
+    nodes_r, nodes_t = pipe.posegraph.nodes_r, pipe.posegraph.nodes_t
+    guess_r = nodes_r[old].T @ nodes_r[cur]
+    guess_t = nodes_r[old].T @ (nodes_t[cur] - nodes_t[old])
+    src, sv = pipe._keyframe_clouds[cur]
+    tgt, tv = pipe._keyframe_clouds[old]
+    src = (src.astype(np.float64) @ guess_r.T + guess_t).astype(np.float32)
+    icp = dataclasses.replace(pipe.cfg.icp, particle_count=pg.loop_particles,
+                              iterations=pg.loop_iterations, knn_count=pg.loop_knn,
+                              source_capacity=pipe._KF_CLOUD_SIZE,
+                              target_capacity=pipe._KF_CLOUD_SIZE)
+    out = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (src, sv, tgt, tv)]
+    return (*out, icp, (old, cur))
+
+
+def run_loop_phase(dev, smi, table, errs, profile: bool) -> tuple[dict, dict]:
+    """Phase 12: the loop path, with and without the pose graph, and its
+    kernels at the loop verification's shapes -> (launches of both runs
+    summed per kernel, launches at the verification's shapes)."""
+    import copy
+    import tempfile
+
+    from svnicp_tpu_torch.io import metrics
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        log, gt_path, cfg_graph = write_loop_files(d, posegraph=True)
+        _, _, cfg_odo = write_loop_files(d, posegraph=False)
+        record_s = time.perf_counter() - t0
+        gt = np.load(gt_path)
+        n = LOOP_LOG["n_frames"]
+        probe = LoopProbe()
+        pipe, summ, launches = run_loop_cli(log, gt_path, cfg_graph, probe)
+        opipe, osumm, olaunches = run_loop_cli(log, gt_path, cfg_odo)
+        frames = log_frames(log) if profile else None
+    outs = pipe.outputs
+    iters = sum(o.icp_iterations for o in outs)
+    traj, otraj = pipe.trajectory(), opipe.trajectory()
+    ate = metrics.ate_rmse(traj, gt)
+    err = float(np.linalg.norm(traj[-1, :3, 3] - gt[-1, :3, 3]))
+    oerr = float(np.linalg.norm(otraj[-1, :3, 3] - gt[-1, :3, 3]))
+    oate = metrics.ate_rmse(otraj, gt)
+    n_verify, loop_iters = len(probe.loop_iters), sum(probe.loop_iters)
+    kf = len(pipe.posegraph.nodes_r)
+
+    def ms(key):
+        v = probe.times[key]
+        return (f"{1e3 * np.mean(v):.2f} ms mean over {len(v)} (max "
+                f"{1e3 * np.max(v):.2f})") if v else "not called"
+
+    print(f"loop path (configs/tpu_features.yaml + the pose graph, {n} HDL-64 proxy "
+          f"frames of the 6 m ring-cloud loop, the `stream` CLI; log recorded in "
+          f"{record_s:.1f} s): {summ['frames_per_sec']:.2f} frames/s with the graph, "
+          f"{osumm['frames_per_sec']:.2f} without  [{smi}]")
+    print(f"loop path: keyframes {kf}; loop closures {pipe.loop_closures} (the JAX "
+          f"package's float32 run: {LOOP_JAX_CLOSURES}); re-anchors {pipe.reanchors}, "
+          f"rejected {pipe.reanchors_rejected}, loop edges pruned {pipe.loop_edges_pruned}")
+    print(f"loop path: {n_verify} loop verifications, {probe.loop_iters} iterations; "
+          f"odometry iterations {iters} (without the graph {sum(o.icp_iterations for o in opipe.outputs)})")
+    print(f"loop path: ATE {ate:.4f} m with the graph, {oate:.4f} m without; final "
+          f"position error {err:.4f} m with, {oerr:.4f} m without (the JAX package's "
+          f"float32 run: ATE {LOOP_JAX_ATE:.4f} m, final {LOOP_JAX_FINAL_ERR:.4f} m; "
+          f"limit {LOOP_ATE_LIMIT:.4f} m)")
+    print(f"loop path: launches with the graph {launches}, without {olaunches}")
+    print(f"time loop path: _update_posegraph {ms('update')} a frame, "
+          f"{1e3 * sum(probe.times['update']) / max(probe.keyframes_added, 1):.2f} ms per "
+          f"keyframe ({probe.keyframes_added} added); _verify_loop {ms('verify')}; "
+          f"optimize(iterations=8) {ms('optimize')}; apply_reanchor {ms('reanchor')}  [{smi}]")
+    graph = copy.deepcopy(pipe.posegraph)
+    graph.optimize(iterations=8)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        copy.deepcopy(pipe.posegraph).optimize(iterations=8)
+    print(f"time optimize(iterations=8) at {kf} keyframes and {len(graph.edges)} edges: "
+          f"{(time.perf_counter() - t0) / 5 * 1e3:.2f} ms, warm, float32 on the card  [{smi}]")
+    # B1-B3 at the verification's shapes: the first closure's keyframe clouds
+    src, sv, tgt, tv, licp, pair = loop_operands(pipe, dev)
+    k, p = licp.knn_count, licp.particle_count
+    name = f"loop verification keyframes {pair} B={src.shape[0]} Nt={tgt.shape[0]}"
+    check_stage1(f"{name} k={k}", src, sv, tgt, tv, k, errs["B1 (loop)"])
+    params, prep = main_path_moments_inputs(licp, src, sv, tgt, tv, dev)
+    check_moments(f"{name} P={p} K={prep.feat13.shape[1]} ({int(sv.sum())} points)",
+                  params, prep, licp.max_dist, errs["B2 (loop)"])
+    hess, bb, r, t, prior = stein_inputs(p, dev, seed=p)
+    check_stein(f"loop verification P={p}", hess, bb, r, t, prior, errs["B3 (loop)"])
+    table["B1 (loop)"] = time_stage1(src, sv, tgt, tv, k)
+    table["B2 (loop)"] = time_plane_moments(params, prep, licp)
+    table["B3 (loop)"] = time_stein(hess, bb, r, t)
+    if profile:
+        profile_frames(pipe.cfg, frames, n - 10, 10)
+    # the path's checks, after its kernels' (whose operands it made)
+    assert summ["frames"] == osumm["frames"] == len(outs) == n, (summ, osumm)
+    assert [o.align_ok for o in outs] == LOOP_JAX_ALIGN_OK
+    assert [o.align_ok for o in opipe.outputs] == LOOP_JAX_ALIGN_OK
+    assert np.isfinite(traj).all() and np.isfinite(pipe.optimized_trajectory()).all()
+    assert launches["B1"] == n - 1 + n_verify, (launches, n_verify)
+    assert launches["B2"] == launches["B3"] == iters + loop_iters, (launches, iters, loop_iters)
+    assert launches["B4"] == launches["B5"] == 0, launches
+    oiters = sum(o.icp_iterations for o in opipe.outputs)
+    assert olaunches == dict(B1=n - 1, B2=oiters, B3=oiters, B4=0, B5=0), olaunches
+    assert len(pipe.loop_closures) >= 1 and pipe.reanchors >= 1, "the loop did not close"
+    assert pipe.reanchors_rejected == 0, pipe.reanchors_rejected
+    assert err < oerr, (err, oerr)
+    assert ate < LOOP_ATE_LIMIT, (ate, LOOP_ATE_LIMIT)
+    both = {key: launches[key] + olaunches[key] for key in KERNELS}
+    at_loop = {"B1 (loop)": n_verify, "B2 (loop)": loop_iters, "B3 (loop)": loop_iters}
+    return both, at_loop
+
+
+def run_cli_phase(smi) -> dict:
+    """Phase 13: `demo --frames 8` through `cli.main` with a JSONL output,
+    its records counted per frame; then `record` of a 10-frame synthetic
+    log and `stream` of it -> launches of both runs summed."""
+    import json as json_mod
+    import tempfile
+
+    import torch
+
+    from svnicp_tpu_torch import cli
+
+    total = {key: 0 for key in KERNELS}
+    with tempfile.TemporaryDirectory() as d:
+        for key in KERNELS:
+            _wrapper(key).launches = 0
+        out = os.path.join(d, "demo.jsonl")
+        pipe, summ = cli.main(["demo", "--frames", "8", "--output", out])
+        torch.cuda.synchronize()
+        with open(out) as f:
+            types = [json_mod.loads(line)["_type"] for line in f]
+        per_frame = ["RuntimeRecord", "OdometryRecord", "VarianceRecord",
+                     "ParticleRecord", "KFGainRecord"]
+        print(f"cli demo --frames 8: summary {summ}; {len(types)} JSONL records "
+              f"(ParametersRecord + {len(per_frame)} a frame: {', '.join(per_frame)}); "
+              f"launches {dict((k, _wrapper(k).launches) for k in KERNELS)}  [{smi}]")
+        assert types == ["ParametersRecord"] + per_frame * 8, types
+        assert summ["frames"] == 8 and np.isfinite(summ["ate_rmse_m"]), summ
+        assert all(o.align_ok for o in pipe.outputs)
+        for key in KERNELS:
+            total[key] += _wrapper(key).launches
+            _wrapper(key).launches = 0
+        log, gt = os.path.join(d, "run.svnl"), os.path.join(d, "gt.npy")
+        cli.main(["record", "--log", log, "--frames", "10", "--gt", gt])
+        out = os.path.join(d, "stream.jsonl")
+        pipe, summ = cli.main(["stream", "--log", log, "--gt", gt, "--output", out])
+        torch.cuda.synchronize()
+        with open(out) as f:
+            types = [json_mod.loads(line)["_type"] for line in f]
+        print(f"cli record + stream (10 synthetic frames of 4,000 points, the default "
+              f"configuration): summary {summ}; {len(types)} JSONL records  [{smi}]")
+        assert types == ["ParametersRecord"] + per_frame * 10, types
+        assert summ["frames"] == 10 and np.isfinite(summ["ate_rmse_m"]), summ
+        assert all(o.align_ok for o in pipe.outputs)
+        for key in KERNELS:
+            total[key] += _wrapper(key).launches
+    return total
+
+
 def moments_bound(params, prep, k: int, point_floats: int, slot_ops: float,
                   point_ops: float) -> tuple[float, str]:
     """What a moments function (B2, B4) needs on this run's data, not the
@@ -1246,7 +1627,7 @@ def main() -> int:
 
     # ---- 3. kernels vs plain
     table = {}
-    errs = {key: [] for key in KERNELS}
+    errs = {key: [] for key in [*KERNELS, *LOOP_SHAPES]}
     src, sv, tgt, tv = stage1_inputs(cfg, scans, dev)
     check_stage1(f"main B={src.shape[0]} Nt={tgt.shape[0]} k={k}",
                  src, sv, tgt, tv, k, errs["B1"])
@@ -1260,18 +1641,6 @@ def main() -> int:
     check_stage1("ragged B=300 Nt=5000 k=12", rs, torch.rand(300, generator=g).to(dev) > 0.1,
                  rt, torch.rand(5000, generator=g).to(dev) > 0.2, 12, errs["B1"])
 
-    def time_stage1(s_, sv_, t_, tv_, k_):
-        n_src, n_tgt = int(sv_.sum()), int(tv_.sum())
-        call = cuda_time_ms(lambda: nn.bucketed_candidates(s_, t_, sv_, tv_, k_), 20)
-        # both launches: the target prep and the search
-        ms = device_ms(lambda: nn.bucketed_candidates(s_, t_, sv_, tv_, k_), 20,
-                       ["stage1_prep_kernel", "stage1_kernel"])
-        plain = device_ms(lambda: nn.bucketed_candidates_plain(s_, t_, sv_, tv_, k_), 5)
-        b_ms, b_by = bound_ms(8.0 * n_src * n_tgt,
-                              s_.numel() * 4 + sv_.numel() + t_.numel() * 4 + tv_.numel()
-                              + s_.shape[0] * k_ * 16)
-        return dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
-
     table["B1"] = time_stage1(src, sv, tgt, tv, k)
     table[f"B1 (geode k={gk})"] = time_stage1(gsrc, gsv, gtgt, gtv, gk)
 
@@ -1281,18 +1650,6 @@ def main() -> int:
     params_r, prep_r = tied_moments_inputs(icp, 10, 300, 12, dev, seed=12)
     check_moments(f"ragged P=10 B=300 K={prep_r.feat13.shape[1]} with ties",
                   params_r, prep_r, icp.max_dist, errs["B2"], ties=True)
-
-    def time_plane_moments(params_, prep_, icp_):
-        md = icp_.max_dist
-        call = cuda_time_ms(lambda: nn.plane_moments(params_, prep_, md), 50)
-        # both launches: the moments and the pass that sums the tiles into H, b
-        ms = device_ms(lambda: nn.plane_moments(params_, prep_, md), 50,
-                       ["plane_moments_kernel", "plane_system_kernel"])
-        plain = device_ms(lambda: nn.plane_moments_plain(params_, prep_, md), 10)
-        # B2 reads a normal with each point and computes n.c once per slot
-        b_ms, b_by = moments_bound(params_, prep_, icp_.knn_count, point_floats=6,
-                                   slot_ops=10.0, point_ops=130.0)
-        return dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
 
     table["B2"] = time_plane_moments(params, prep, icp)
 
@@ -1325,16 +1682,6 @@ def main() -> int:
     params_r, prep_r = tied_moments_inputs(gicp, 10, 300, 12, dev, seed=15)
     check_moments(f"ragged P=10 B=300 K={prep_r.feat13.shape[1]} with ties",
                   params_r, prep_r, gicp.max_dist, errs["B4"], ties=True)
-
-    def time_point_moments(params_, prep_, icp_):
-        md = icp_.max_dist
-        call = cuda_time_ms(lambda: nn.point_moments(params_, prep_, md), 50)
-        ms = device_ms(lambda: nn.point_moments(params_, prep_, md), 50,
-                       ["point_moments_kernel", "point_system_kernel"])
-        plain = device_ms(lambda: nn.point_moments_plain(params_, prep_, md), 10)
-        b_ms, b_by = moments_bound(params_, prep_, icp_.knn_count, point_floats=3,
-                                   slot_ops=5.0, point_ops=150.0)
-        return dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
 
     table["B4"] = time_point_moments(gparams, gprep, gicp)
     table[f"B4 (subt_mrs P={scfg.icp.particle_count} B={scfg.icp.source_capacity})"] = \
@@ -1525,13 +1872,37 @@ def main() -> int:
     olaunches = run_options(cfg_mod, frames, rots, trans, vframes, vgt_r, vgt_t, smi,
                             dev)
 
+    # ---- 12. the loop path, and B1-B3 at the loop verification's shapes
+    llaunches, at_loop = run_loop_phase(dev, smi, table, errs, args.profile)
+    for key in LOOP_SHAPES:
+        row = table[key]
+        print(f"time {key}: kernel {row['ms']:.4f} ms on the device "
+              f"({row['call_ms']:.4f} ms per wrapper call, back to back)  plain "
+              f"{row['plain_ms']:.4f} ms on the device  bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']})  library_ms: none  [{smi}]")
+
+    # ---- 13. the CLI: demo with JSONL records, record + stream
+    claunches = run_cli_phase(smi)
+
     rows = []
     for key, (_, name, source, replaces) in KERNELS.items():
         row = table[key]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(x[key] for x in (launches, glaunches, vlaunches,
                                                         flaunches, slaunches, dlaunches,
-                                                        wlaunches, olaunches)),
+                                                        wlaunches, olaunches, llaunches,
+                                                        claunches)),
+                         max_abs_err=max(errs[key]), ms=row["ms"],
+                         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                         bound_by=row["bound_by"], library_ms=None))
+    # the loop verification's shapes: their launches are the loop run's
+    # verifications (B1) and verification iterations (B2, B3), which the
+    # kernel's own row counts as well
+    for key in LOOP_SHAPES:
+        _, name, source, replaces = KERNELS[key.split()[0]]
+        row = table[key]
+        rows.append(dict(name=f"{name} (loop verification)", route="cuda", source=source,
+                         replaces=replaces, launches=at_loop[key],
                          max_abs_err=max(errs[key]), ms=row["ms"],
                          plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                          bound_by=row["bound_by"], library_ms=None))

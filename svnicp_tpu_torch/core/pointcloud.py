@@ -173,3 +173,17 @@ def downsample_uniform(cloud: PaddedCloud, voxel_size: float, capacity: int
     rank = torch.where(keep, hash32(skey) & -2,
                        torch.full_like(skey, INT32_MAX))
     return compact_by_rank(rank, pts[order], capacity)
+
+
+def kitti_vertical_correction(points: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """KITTI raw-scan fixes (ref: OdometryPipeline.cpp:385-400): rotate each
+    point 0.205 deg about p x z, and azimuth pseudo-times in [0,1] for
+    deskewing -> (corrected points [N,3], times [N])."""
+    z = torch.tensor([0.0, 0.0, 1.0], dtype=points.dtype, device=points.device)
+    axis = torch.linalg.cross(points, z.expand_as(points))
+    axis = axis / torch.clamp_min(torch.linalg.vector_norm(axis, dim=-1, keepdim=True),
+                                  1e-12)
+    rot = geo.so3_exp((0.205 * np.pi / 180.0) * axis)
+    corrected = (rot @ points[:, :, None])[:, :, 0]
+    yaw = -torch.atan2(corrected[:, 1], corrected[:, 0])
+    return corrected, 0.5 * (yaw / np.pi + 1.0)

@@ -1,10 +1,14 @@
 // Host-side frame staging for the PyTorch port: range crop + pad, and one
 // stage of the uniform downsample, each also in a form that carries the
-// per-point sweep times of the rows it keeps. The port's own copy of
-// svn_stage_scan, svn_stage_scan_ts, svn_downsample_one_stage and
-// svn_downsample_one_stage_ts from native/svnicp_native.cpp, with the same
-// arithmetic, so the staged clouds are byte-equal to the JAX package's. Plain C ABI, bound with ctypes
-// (svnicp_tpu_torch/io/native.py); built with g++ at first use.
+// per-point sweep times of the rows it keeps; and the two loaders of the
+// log and dataset readers, KITTI's velodyne .bin files and the per-point
+// time field of interleaved point records. The port's own copy of
+// svn_stage_scan, svn_stage_scan_ts, svn_downsample_one_stage,
+// svn_downsample_one_stage_ts, svn_read_kitti_bin and
+// svn_extract_timestamps from native/svnicp_native.cpp, with the same
+// arithmetic, so the staged clouds and the times are byte-equal to the JAX
+// package's. Plain C ABI, bound with ctypes (svnicp_tpu_torch/io/native.py);
+// built with g++ at first use.
 //
 // Downsample semantics (bit-compatible with core/pointcloud.downsample_uniform):
 //  - voxel id: floor(p / v) per axis in f32 (divide, never multiply by a
@@ -15,6 +19,7 @@
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstring>
 #include <vector>
 
@@ -143,6 +148,14 @@ int svn_crop_stage(const float* xyz, const float* ts, int n, float min_range,
   return m;
 }
 
+double svn_ts_read(const uint8_t* p, int dtype_code) {
+  switch (dtype_code) {
+    case 0: { float f; std::memcpy(&f, p, 4); return f; }
+    case 1: { double d; std::memcpy(&d, p, 8); return d; }
+    default: { uint32_t u; std::memcpy(&u, p, 4); return u; }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -182,6 +195,52 @@ int svn_downsample_one_stage_ts(const float* xyz, const float* ts, int n,
   std::memset(out + 3 * m, 0, sizeof(float) * 3 * (capacity - m));
   if (out_ts) std::memset(out_ts + m, 0, sizeof(float) * (capacity - m));
   return m;
+}
+
+// KITTI velodyne .bin (float32 x, y, z, intensity records) -> [n,3] in
+// out_xyz, at most `capacity` points. Returns n, or -1 when the file
+// cannot be opened.
+int svn_read_kitti_bin(const char* path, float* out_xyz, int capacity) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return -1;
+  std::vector<float> buf(4096 * 4);
+  int n = 0;
+  size_t got;
+  while ((got = std::fread(buf.data(), sizeof(float), buf.size(), f)) > 0) {
+    const size_t pts = got / 4;
+    for (size_t i = 0; i < pts && n < capacity; ++i) {
+      out_xyz[3 * n + 0] = buf[4 * i + 0];
+      out_xyz[3 * n + 1] = buf[4 * i + 1];
+      out_xyz[3 * n + 2] = buf[4 * i + 2];
+      ++n;
+    }
+    if (n >= capacity) break;
+  }
+  std::fclose(f);
+  return n;
+}
+
+// Per-point times of n interleaved records (`stride` bytes each, the field
+// at `offset`; dtype_code 0 = float32, 1 = float64, 2 = uint32), min-max
+// normalised to [0,1] in double before the float32 narrowing (epoch stamps
+// keep their intra-sweep range). Returns 1, 0 when all times are equal
+// (out untouched), -1 for an unknown dtype code.
+int svn_extract_timestamps(const uint8_t* data, int n, int stride, int offset,
+                           int dtype_code, float* out) {
+  if (dtype_code < 0 || dtype_code > 2) return -1;
+  double mn = 1e300, mx = -1e300;
+  for (int i = 0; i < n; ++i) {
+    const double v = svn_ts_read(data + (size_t)i * stride + offset, dtype_code);
+    if (v < mn) mn = v;
+    if (v > mx) mx = v;
+  }
+  if (!(mx > mn)) return 0;
+  const double inv = 1.0 / (mx - mn);
+  for (int i = 0; i < n; ++i) {
+    const double v = svn_ts_read(data + (size_t)i * stride + offset, dtype_code);
+    out[i] = (float)((v - mn) * inv);
+  }
+  return 1;
 }
 
 }  // extern "C"

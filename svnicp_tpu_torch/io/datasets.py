@@ -1,12 +1,14 @@
-"""Synthetic ground-truthed LiDAR sequences (port of
+"""Synthetic ground-truthed LiDAR sequences and the KITTI readers (port of
 `svnicp_tpu/io/datasets.py`: `SyntheticWorld.scan_at` and `scan_sweep`,
-`raycast_sweep`, `synthetic_trajectory` and `synthetic_imu`). The same
-numpy draws in the same order, so a scan made here from a seed is
+`raycast_sweep`, `DegenerateWorld`, `synthetic_trajectory`,
+`circular_trajectory`, `synthetic_imu`, and the KITTI odometry format). The
+same numpy draws in the same order, so a scan made here from a seed is
 byte-equal to the JAX package's (a sweep equal to float32 rounding)."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -187,6 +189,60 @@ def raycast_sweep(surfaces, pose0_r, pose0_t, pose1_r, pose1_t,
     return pts, tau, pose_at(0.5)
 
 
+@dataclasses.dataclass
+class DegenerateWorld:
+    """Geometrically under-constrained scenes: 'corridor' (two walls and a
+    floor along x: x-translation unobservable), 'tunnel' (an octagonal
+    prism along x), 'plane' (bare ground: x, y and yaw unobservable)."""
+
+    kind: str = "corridor"
+    length: float = 120.0
+    half_width: float = 3.0
+    height: float = 4.0
+
+    def __post_init__(self):
+        L, w, h = self.length, self.half_width, self.height
+        o = -L / 2
+        ex = np.array([1.0, 0, 0])
+        ez = np.array([0, 0, 1.0])
+        self.surfaces = []
+        if self.kind in ("corridor", "plane"):
+            self.surfaces.append((np.array([o, -4 * w, 0.0]), ex,
+                                  np.array([0, 1.0, 0]), L, 8 * w))  # floor
+        if self.kind == "corridor":
+            self.surfaces.append((np.array([o, -w, 0.0]), ex, ez, L, h))
+            self.surfaces.append((np.array([o, w, 0.0]), ex, ez, L, h))
+        elif self.kind == "tunnel":
+            r = self.half_width
+            ang = np.linspace(0, 2 * np.pi, 8, endpoint=False)
+            for a0, a1 in zip(ang, np.roll(ang, -1)):
+                p0 = np.array([o, r * np.cos(a0), r * np.sin(a0) + r])
+                p1 = np.array([o, r * np.cos(a1), r * np.sin(a1) + r])
+                v = p1 - p0
+                self.surfaces.append((p0, ex, v / np.linalg.norm(v), L,
+                                      np.linalg.norm(v)))
+        elif self.kind != "plane":
+            raise ValueError(f"unknown kind {self.kind!r}")
+
+    def scan_at(self, rng, pose_r, pose_t, n_points: int = 4000,
+                max_range: float = 45.0, noise: float = 0.01) -> np.ndarray:
+        areas = np.array([ul * vl for (_, _, _, ul, vl) in self.surfaces])
+        counts = rng.multinomial(n_points * 3, areas / areas.sum())
+        pts = []
+        for (o, u, v, ul, vl), c in zip(self.surfaces, counts):
+            a = rng.uniform(0, ul, c)[:, None]
+            b = rng.uniform(0, vl, c)[:, None]
+            pts.append(o[None] + a * u[None] + b * v[None])
+        world_pts = np.concatenate(pts, axis=0)
+        d = np.linalg.norm(world_pts - pose_t[None], axis=1)
+        world_pts = world_pts[(d < max_range) & (d > 1.0)]
+        if len(world_pts) > n_points:
+            world_pts = world_pts[rng.choice(len(world_pts), n_points,
+                                             replace=False)]
+        local = (world_pts - pose_t[None]) @ pose_r
+        return (local + rng.normal(scale=noise, size=local.shape)).astype(np.float32)
+
+
 def synthetic_trajectory(n_frames: int, dt: float = 0.1, speed: float = 1.5,
                          turn_rate: float = 0.08, seed: int = 0,
                          ramp_seconds: float = 0.0):
@@ -210,6 +266,25 @@ def synthetic_trajectory(n_frames: int, dt: float = 0.1, speed: float = 1.5,
     return times, rots, pos
 
 
+def circular_trajectory(n_samples: int, dt: float, radius: float,
+                        angular_rate: float, z: float = 0.8):
+    """Constant-rate circle (the loop-closure scenario: with the scan range
+    capped below the diameter, heading error compounds into drift until
+    the start region comes back into view), from the origin heading +x,
+    counter-clockwise about (0, radius) -> (times [N], rotations [N,3,3],
+    translations [N,3])."""
+    times = np.arange(n_samples) * dt
+    theta = angular_rate * times
+    center = np.array([0.0, radius, z])
+    trans = center[None] + radius * np.stack(
+        [np.sin(theta), -np.cos(theta), np.zeros(n_samples)], 1)
+    rots = np.zeros((n_samples, 3, 3))
+    c, s = np.cos(theta), np.sin(theta)
+    for i in range(n_samples):
+        rots[i] = [[c[i], -s[i], 0], [s[i], c[i], 0], [0, 0, 1]]
+    return times, rots, trans
+
+
 def synthetic_imu(times, rots, trans, gravity: float):
     """IMU samples consistent with a discrete trajectory (midpoint rates)
     -> list of (t, acc [3], gyro [3]) at the trajectory stamps; acc is the
@@ -230,3 +305,33 @@ def synthetic_imu(times, rots, trans, gravity: float):
             w = np.zeros(3)
         imu.append((float(times[i]), r.T @ (acc_nav[i] + g_up), w))
     return imu
+
+
+# ------------------------------------------------------------ KITTI odometry
+
+
+def read_kitti_bin(path: str) -> np.ndarray:
+    """One KITTI velodyne .bin scan -> [N,3] float32 (intensity dropped)."""
+    from svnicp_tpu_torch.io import native
+
+    return native.read_kitti_bin(path)
+
+
+def read_kitti_poses(path: str) -> np.ndarray:
+    """KITTI poses.txt -> [N,4,4] homogeneous cam0 poses."""
+    rows = np.loadtxt(path).reshape(-1, 3, 4)
+    out = np.tile(np.eye(4), (rows.shape[0], 1, 1))
+    out[:, :3, :] = rows
+    return out
+
+
+def kitti_sequence(velodyne_dir: str, times_path: str | None = None):
+    """Iterate (t, points) over a KITTI sequence directory (10 Hz stamps
+    when no times file is given)."""
+    files = sorted(f for f in os.listdir(velodyne_dir) if f.endswith(".bin"))
+    if times_path and os.path.exists(times_path):
+        times = np.loadtxt(times_path)
+    else:
+        times = np.arange(len(files)) * 0.1
+    for t, f in zip(times, files):
+        yield float(t), read_kitti_bin(os.path.join(velodyne_dir, f))

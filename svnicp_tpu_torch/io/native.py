@@ -1,8 +1,10 @@
 """Host frame staging: range crop + pad, and one uniform-downsample stage,
-each also carrying per-point sweep times.
+each also carrying per-point sweep times; the KITTI .bin reader and the
+per-point time field of a log's point records.
 
 ctypes bindings for `csrc/host_staging.cpp`, the port's own copy of the
-four host functions of `native/svnicp_native.cpp` the odometry path calls. The
+six host functions of `native/svnicp_native.cpp` the odometry path and the
+readers call. The
 library is built with g++ into `build/svnicp_tpu_torch/` at first use (the
 JAX package's flags, so both produce the same bytes); if it cannot be
 built, the staging functions raise. The numpy versions beside them compute
@@ -63,6 +65,12 @@ def library() -> ctypes.CDLL:
         lib.svn_downsample_one_stage_ts.restype = ctypes.c_int
         lib.svn_downsample_one_stage_ts.argtypes = [
             fptr, fptr, ctypes.c_int, ctypes.c_float, fptr, fptr, ctypes.c_int]
+        lib.svn_read_kitti_bin.restype = ctypes.c_int
+        lib.svn_read_kitti_bin.argtypes = [ctypes.c_char_p, fptr, ctypes.c_int]
+        lib.svn_extract_timestamps.restype = ctypes.c_int
+        lib.svn_extract_timestamps.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, fptr]
         _lib = lib
         return lib
 
@@ -134,6 +142,55 @@ def downsample_one_stage_ts(xyz: np.ndarray, ts: np.ndarray | None, voxel: float
     n = lib.svn_downsample_one_stage_ts(_fptr(xyz), _optr(ts), len(xyz), voxel,
                                         _fptr(out), _optr(out_ts), capacity)
     return out, out_ts, n
+
+
+_TIME_CODES = {"f4": 0, "f8": 1, "u4": 2}
+
+
+def read_kitti_bin(path: str, capacity: int = 1 << 18) -> np.ndarray:
+    """[N,3] float32 from a KITTI velodyne .bin (intensity dropped), at
+    most `capacity` points."""
+    lib = library()
+    out = np.empty((capacity, 3), np.float32)
+    n = lib.svn_read_kitti_bin(os.fsencode(path), _fptr(out), capacity)
+    if n < 0:
+        raise IOError(f"cannot read {path}")
+    return out[:n]
+
+
+def extract_timestamps(data: bytes | np.ndarray, n: int, stride: int,
+                       offset: int, dtype: str) -> tuple[np.ndarray, bool]:
+    """Per-point times of n interleaved records (`stride` bytes each, an
+    f4, f8 or u4 field at `offset`), min-max normalised -> ([n] f32, ok);
+    ok is False when every time is equal."""
+    lib = library()
+    buf = np.frombuffer(data, np.uint8) if isinstance(data, bytes) else data
+    buf = np.ascontiguousarray(buf)
+    out = np.empty(n, np.float32)
+    ok = lib.svn_extract_timestamps(
+        buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n, stride, offset,
+        _TIME_CODES[dtype], _fptr(out))
+    if ok < 0:
+        raise ValueError(f"bad time dtype {dtype}")
+    return out, bool(ok)
+
+
+def read_kitti_bin_numpy(path: str, capacity: int = 1 << 18) -> np.ndarray:
+    """Plain version of `read_kitti_bin`."""
+    raw = np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+    return np.ascontiguousarray(raw[:capacity, :3])
+
+
+def extract_timestamps_numpy(data, n, stride, offset, dtype):
+    """Plain version of `extract_timestamps`."""
+    buf = np.frombuffer(data, np.uint8) if isinstance(data, bytes) else data
+    rec = np.dtype({"names": ["t"], "formats": ["<" + dtype], "offsets": [offset],
+                    "itemsize": stride})
+    vals = np.ascontiguousarray(buf)[: n * stride].view(rec)["t"].astype(np.float64)
+    if n == 0 or not vals.max() > vals.min():
+        return np.empty(n, np.float32), False
+    mn = vals.min()
+    return ((vals - mn) * (1.0 / (vals.max() - mn))).astype(np.float32), True
 
 
 def _stage_keep(xyz, min_range, max_range):

@@ -45,6 +45,8 @@ from svnicp_tpu_torch.core import segmentation as seg
 from svnicp_tpu_torch.core import icp_svd, smoother, svgd, svn, voxmap
 from svnicp_tpu_torch.device import resolve_device
 from svnicp_tpu_torch.runtime.ingest import ImuWindow, IngestDriver
+from svnicp_tpu_torch.runtime.posegraph import PoseGraph
+from svnicp_tpu_torch.runtime.posegraph_driver import PoseGraphDriver
 from svnicp_tpu_torch.runtime.profiling import StageTimer
 
 
@@ -98,7 +100,6 @@ def check_supported(cfg: PipelineConfig) -> None:
     """The pipeline options this port implements so far; others raise."""
     unsupported = {
         "dispatch_batch": cfg.dispatch_batch != 1,
-        "posegraph": cfg.posegraph.enabled,
         "map.sharded": cfg.map.sharded,
         "sharding": cfg.sharding.particle_axis * cfg.sharding.point_axis > 1,
     }
@@ -539,12 +540,15 @@ def odometry_step_raw(cfg: PipelineConfig, state: OdometryState, points,
     return state, out
 
 
-class LIOPipeline(IngestDriver):
+class LIOPipeline(IngestDriver, PoseGraphDriver):
     """Host driver: scan staging, the frame-gap gate, dispatch and records
-    (ref: OdometryPipeline.cpp:106-110, 449-658).
+    (ref: OdometryPipeline.cpp:106-110, 449-658), and with
+    `posegraph.enabled` the keyframe graph, loop closure and re-anchoring
+    (`runtime/posegraph_driver.py`) after every frame.
 
     Runs on the card unless `device="cpu"` is passed; on a host without CUDA
-    the default raises. With `stage_ahead` (and host_downsample), frame k's
+    the default raises. With `stage_ahead` (and host_downsample, and no pose
+    graph, which needs each frame's output before the next), frame k's
     native staging overlaps frame k-1's dispatch and outputs lag by one
     frame: call `flush()` (or `close()`) to drain."""
 
@@ -567,6 +571,23 @@ class LIOPipeline(IngestDriver):
         self.frame_timings: list[dict] = []
         self._stage_pool = None
         self._pending: list = []
+        self.posegraph = None
+        self._keyframe_clouds: list[tuple[np.ndarray, np.ndarray]] = []
+        self.loop_closures: list[tuple[int, int]] = []
+        self.reanchors = 0
+        self.reanchors_rejected = 0
+        self.loop_edges_pruned = 0
+        # rows a sharded re-anchor drops; the replicated move never drops
+        self.reanchor_drops = 0
+        if cfg.posegraph.enabled:
+            pg = cfg.posegraph
+            self.posegraph = PoseGraph(
+                keyframe_trans_threshold=pg.keyframe_trans_threshold,
+                keyframe_rot_threshold=pg.keyframe_rot_threshold,
+                loop_radius=pg.loop_radius,
+                loop_min_separation=pg.loop_min_separation,
+                cov_floor=pg.cov_floor, huber_delta=pg.huber_delta,
+                device=self.device, host_dtype=_dtype(cfg))
 
     def _time(self, t: float) -> torch.Tensor:
         return torch.tensor(t, dtype=_dtype(self.cfg), device=self.device)
@@ -608,9 +629,9 @@ class LIOPipeline(IngestDriver):
                 pts, valid, ts = self._upload(rows, n)
                 self.state, out = bootstrap(self.cfg, self.state, pts, valid,
                                             self._time(t), imu, ts)
-            self._record_frame(t, out)
+            self._record_frame(t, out, points)
             return out
-        if host_ds and self.cfg.stage_ahead:
+        if host_ds and self.cfg.stage_ahead and self.posegraph is None:
             return self._feed_scan_ahead(t, points, ds_ts, init_particles)
         if self._pending:
             self.flush()    # staging mode changed mid-stream: keep order
@@ -625,7 +646,7 @@ class LIOPipeline(IngestDriver):
                 self.state, out = odometry_step_raw(
                     self.cfg, self.state, pts, valid, self._time(t),
                     init_particles, self._skip_insert(self._frames), imu, ts)
-        self._record_frame(t, out)
+        self._record_frame(t, out, points)
         return out
 
     def _dispatch_pre(self, t, ds_buf, n_map, imu, frame_idx, init_particles):
@@ -635,7 +656,9 @@ class LIOPipeline(IngestDriver):
                 init_particles, self._skip_insert(frame_idx), imu)
         return out
 
-    def _record_frame(self, t: float, out: FrameOutput) -> None:
+    def _record_frame(self, t: float, out: FrameOutput, points) -> None:
+        """Keep the frame's output and stamps; with the pose graph, update
+        it from the frame's pose and the scan as it was fed."""
         self._frames += 1
         self._last_frame_time = t
         self.outputs.append(out)
@@ -644,6 +667,8 @@ class LIOPipeline(IngestDriver):
             "preprocessing_time": self.timer.last.get("preprocess", 0.0),
             "steinicp_time": self.timer.last.get("dispatch", 0.0),
         })
+        if self.posegraph is not None:
+            self._update_posegraph(t, out, points)
 
     def flush(self) -> FrameOutput | None:
         """Dispatch any staged-ahead frames; returns the last output."""

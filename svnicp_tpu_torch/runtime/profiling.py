@@ -1,6 +1,11 @@
-"""Named wall-clock spans with running means (port of `StageTimer` from
-`svnicp_tpu/runtime/profiling.py`; ref: the reference's steady-clock Timer,
-ICPUtils.h:71-89)."""
+"""Stage timing and device tracing (port of `svnicp_tpu/runtime/profiling.py`;
+ref: the reference's steady-clock Timer, ICPUtils.h:71-89):
+
+- `StageTimer`: named wall-clock spans with running means;
+- `device_trace`: a `torch.profiler` trace of the enclosed region (host
+  and CUDA activity) written to a directory, where the JAX package writes
+  a `jax.profiler` trace.
+"""
 
 from __future__ import annotations
 
@@ -34,3 +39,23 @@ class StageTimer:
     def report(self) -> str:
         return "  ".join(f"{k}={v * 1000:.1f}ms"
                          for k, v in sorted(self.means().items()))
+
+    def reset(self) -> None:
+        self.totals.clear()
+        self.counts.clear()
+        self.last.clear()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Trace the enclosed region with `torch.profiler` (CPU, and CUDA where
+    the card is present) and write it to `log_dir` as a TensorBoard trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

@@ -552,3 +552,54 @@ def test_xla_route_launches_no_kernel(dev):
             assert made == [1, res.iterations, 0, 0, res.iterations], made
         else:
             assert made == [0] * 5, made
+
+
+def test_posegraph_and_reanchor_on_the_card(dev):
+    """The pose graph's float32 Gauss-Newton on the card against the same
+    on the CPU (1e-4: two devices' float32 sums of one dense solve), and the
+    re-anchor's map move on the card against the CPU's, in float64 (where
+    no point lies within rounding of a voxel edge): the same keys and
+    validity, the points within 1e-12 m."""
+    import copy
+
+    from svnicp_tpu_torch.core import pointcloud as pc
+    from svnicp_tpu_torch.core import voxmap
+    from svnicp_tpu_torch.runtime import pipeline as pl
+    from svnicp_tpu_torch.runtime import posegraph, posegraph_driver
+    from svnicp_tpu_torch.config import PipelineConfig
+
+    rng = np.random.default_rng(0)
+    g = posegraph.PoseGraph(keyframe_trans_threshold=0.5, device="cpu")
+    for i in range(30):
+        th = 2 * np.pi * i / 28 + 0.003 * i
+        r = geo.so3_exp(torch.tensor([0.0, 0.0, th], dtype=torch.float64)).numpy()
+        t = np.array([4 * np.sin(th), 4 - 4 * np.cos(th), 0.0]) + 0.01 * rng.normal(size=3)
+        g.maybe_add_keyframe(0.1 * i, r, t, np.eye(6) * 1e-4)
+    n = len(g.nodes_r)
+    g.add_loop_edge(0, n - 1, g.nodes_r[0].T @ g.nodes_r[n - 1] @ geo.so3_exp(
+        torch.tensor([0.0, 0.0, -0.05], dtype=torch.float64)).numpy(),
+        np.array([0.3, -0.2, 0.0]), np.eye(6) * 1e-3)
+    on_card = copy.deepcopy(g)
+    on_card.device = dev
+    g.optimize(8)
+    on_card.optimize(8)
+    np.testing.assert_allclose(np.stack(on_card.nodes_t), np.stack(g.nodes_t), atol=1e-4)
+    np.testing.assert_allclose(np.stack(on_card.nodes_r), np.stack(g.nodes_r), atol=1e-4)
+
+    cfg = PipelineConfig(dtype="float64")
+    state = pl.init_state(cfg, "cpu")
+    pts = torch.from_numpy(rng.uniform(-30, 30, (5000, 3)))
+    vm, _ = voxmap.insert(state.vmap, pc.PaddedCloud(pts, torch.ones(5000, dtype=torch.bool)),
+                          torch.eye(3, dtype=torch.float64),
+                          torch.zeros(3, dtype=torch.float64), 1.0, 20, 300.0)
+    state = state._replace(vmap=vm)
+    dr = geo.so3_exp(torch.tensor([0.0, 0.02, 0.4], dtype=torch.float64))
+    dt = torch.tensor([1.5, -0.7, 0.1], dtype=torch.float64)
+    want = posegraph_driver._reanchor_state(cfg, state, dr, dt)
+    card_state = pl.init_state(cfg, dev)._replace(vmap=voxmap.VoxelMap(
+        *(x.to(dev) for x in vm)))
+    got = posegraph_driver._reanchor_state(cfg, card_state, dr.to(dev), dt.to(dev))
+    assert torch.equal(got.vmap.key.cpu(), want.vmap.key)
+    assert torch.equal(got.vmap.valid.cpu(), want.vmap.valid)
+    assert int(want.vmap.valid.sum()) > 1000
+    torch.testing.assert_close(got.vmap.points.cpu(), want.vmap.points, rtol=0, atol=1e-12)

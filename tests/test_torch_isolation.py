@@ -153,14 +153,18 @@ def test_xla_path_options_raise(option):
 
 
 def test_remaining_refusals_are_named():
-    """The pipeline refuses what ROADMAP A11 and A12 still have to port."""
+    """The pipeline refuses what ROADMAP A11b and A12 still have to port;
+    the pose graph (A11) is ported."""
     cfg = cfg_mod.from_yaml(str(ROOT / "configs" / "tpu_plane.yaml"))
     for change, name in ((dict(dispatch_batch=2), "dispatch_batch"),
-                         (dict(posegraph=dataclasses.replace(cfg.posegraph, enabled=True)),
-                          "posegraph"),
-                         (dict(map=dataclasses.replace(cfg.map, sharded=True)), "map.sharded")):
+                         (dict(map=dataclasses.replace(cfg.map, sharded=True)), "map.sharded"),
+                         (dict(sharding=dataclasses.replace(cfg.sharding, point_axis=2)),
+                          "sharding")):
         with pytest.raises(NotImplementedError, match=name):
             pl.LIOPipeline(dataclasses.replace(cfg, **change), device="cpu")
+    pipe = pl.LIOPipeline(dataclasses.replace(cfg, posegraph=dataclasses.replace(
+        cfg.posegraph, enabled=True)), device="cpu")
+    assert pipe.posegraph is not None
 
 
 def test_all_configs_load(tmp_path):
