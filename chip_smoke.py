@@ -93,7 +93,19 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    repeats bit-identical, with times and bounds;
 13. CLI: `demo --frames 8` through `cli.main` with a JSONL output whose
    records are counted per frame, then `record` of a 10-frame synthetic
-   log and `stream` of it (the default configuration, the XLA route).
+   log and `stream` of it (the default configuration, the XLA route);
+14. batched and threaded: the main path's frames again, per frame as
+   written, with dispatch_batch=4 and through `run_threaded`, alternated,
+   three runs each: poses, var_icp and iterations bit-identical to phase
+   4's run, the launches, one stacked upload and one packed read-back per
+   batch, a HostFrameOutput equal to its FrameOutput on the card, and the
+   three modes' frames/s (median and quartiles);
+15. degenerate scenes: tests/test_degenerate_pipeline.py's corridor, tunnel
+   and plane at its kf_cfg(equilibrium=True) (float64, the XLA route) with
+   its thresholds on the prior-relative variance ratios and containment;
+   the same scenes in float32 on the kernel route (B1 at k=16, B2 and B3
+   at P=8) with their launch counts, r printed beside float64's; and the
+   HDL-64 segmentation case with its assertions.
 Before the paths, one SubT-fast sweep's voxel keys are computed on the
 card and on the CPU: none may differ.
 Each path's launch counts are set to 0 just before it and read just after.
@@ -105,7 +117,8 @@ With `--profile`, a torch.profiler trace of 5 more frames of each path
 (device-busy share, kernels by device time), and of the loop path's last
 10 frames with the graph (where the loop closes).
 The last lines are the kernel table as JSON (`launches` summed over all
-paths, options and the CLI; B1-B3 once more at the loop verification's
+paths, options, the CLI, the batched and threaded runs and the degenerate
+scenes; B1-B3 once more at the loop verification's
 shapes, with its launches), the run's wall time, the line `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader` prints, and {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result. It imports nothing of JAX or of
@@ -1548,6 +1561,289 @@ def run_cli_phase(smi) -> dict:
     return total
 
 
+def _quartiles(xs) -> str:
+    q1, q2, q3 = np.percentile(xs, [25, 50, 75])
+    return f"median {q2:.2f} (quartiles {q1:.2f}-{q3:.2f})"
+
+
+def run_batch_phase(cfg, frames, per_frame_pipe, smi) -> dict:
+    """Phase 14: the main path (configs/tpu_plane.yaml on phase 4's frames)
+    per frame as written (stage-ahead on), with dispatch_batch=4
+    (stage-ahead off: the bootstrap, 2 warm-up frames drained one at a time
+    by flush(), then 5 batches of 4) and through `run_threaded` with
+    dispatch_batch=1, alternated, three runs each; each run's launch counts
+    set to 0 just before it and read just after. Checked on every run:
+    poses and var_icp bit-identical to phase 4's per-frame run, the same
+    iterations per frame, B1 = frames - 1 and B2 = B3 = iterations; for the
+    batched runs one stacked upload and one packed read-back per batch
+    (`packing.copies`); and a HostFrameOutput of a per-frame output on the
+    card equal to it field by field. Frames/s over the 20 timed frames, the
+    pose and var_icp of each read on the host inside the timed window ->
+    launches summed over the nine runs."""
+    import dataclasses
+
+    import torch
+
+    from svnicp_tpu_torch.runtime import packing
+    from svnicp_tpu_torch.runtime import pipeline as pl
+
+    t_phase = time.perf_counter()
+    want = per_frame_pipe.outputs
+    want_iters = [o.icp_iterations for o in want]
+    n = len(frames)
+
+    def consume(pipe, first):
+        for o in pipe.outputs[first:]:
+            o.pose_t.cpu(), o.var_icp.cpu()
+
+    def run(mode):
+        c = dataclasses.replace(cfg, dispatch_batch=4) if mode == "batched" else cfg
+        pipe = pl.LIOPipeline(c, device="cuda")
+        for key in KERNELS:
+            _wrapper(key).launches = 0
+        packing.copies.update(upload=0, readback=0)
+
+        def drive(lo, hi):
+            if mode == "threaded":
+                pipe.run_threaded((float(t), scan) for t, scan, _, _ in frames[lo:hi])
+            else:
+                feed(pipe, frames, lo, hi)
+                pipe.flush()
+            consume(pipe, lo)
+
+        drive(0, WARMUP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drive(WARMUP, n)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        pipe.close()
+        launches = {key: _wrapper(key).launches for key in KERNELS}
+        got = pipe.outputs
+        assert len(got) == n, (mode, len(got))
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a.pose_t.cpu(), b.pose_t.cpu()), (mode, i)
+            assert torch.equal(a.pose_r.cpu(), b.pose_r.cpu()), (mode, i)
+            assert torch.equal(a.var_icp.cpu(), b.var_icp.cpu()), (mode, i)
+        iters = [o.icp_iterations for o in got]
+        assert iters == want_iters, (mode, iters)
+        assert launches["B1"] == n - 1, (mode, launches)
+        assert launches["B2"] == launches["B3"] == sum(iters), (mode, launches)
+        assert launches["B4"] == launches["B5"] == 0, (mode, launches)
+        if mode == "batched":
+            assert all(isinstance(o, packing.HostFrameOutput) for o in got[1:])
+            batches = (WARMUP - 1) + (n - WARMUP) // 4
+            assert packing.copies == {"upload": batches, "readback": batches}, \
+                packing.copies
+        else:
+            assert packing.copies == {"upload": 0, "readback": 0}, packing.copies
+        return TIMED / dt, launches, dict(packing.copies)
+
+    total = {key: 0 for key in KERNELS}
+    fps = {"per frame": [], "batched": [], "threaded": []}
+    copies = {}
+    for _ in range(3):
+        for mode in fps:
+            f, launches, copies[mode] = run(mode)
+            fps[mode].append(f)
+            for key in KERNELS:
+                total[key] += launches[key]
+    # a HostFrameOutput of a per-frame output on the card
+    out = want[-1]
+    before = packing.copies["readback"]
+    host = packing.HostFrameOutput(packing.pack_output(out))
+    for name, _ in packing._PACK_F32:
+        assert torch.equal(getattr(host, name), getattr(out, name).cpu()), name
+    assert host.icp_iterations == out.icp_iterations and host.align_ok is out.align_ok
+    assert int(host.map_points) == int(out.map_points)
+    assert packing.copies["readback"] == before + 1
+    print(f"batched and threaded (configs/tpu_plane.yaml, {n} frames, {sum(want_iters)} "
+          f"iterations): poses, var_icp and iterations bit-identical to per-frame "
+          f"dispatch in 3 runs of each; batched copies {copies['batched']} (one stacked upload "
+          f"and one read-back per batch); HostFrameOutput equals FrameOutput on the card")
+    for mode, xs in fps.items():
+        print(f"  {mode}: {_quartiles(xs)} frames/s over {TIMED} timed frames, runs "
+              f"{[round(x, 2) for x in xs]}  [{smi}]")
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s of wall time; launches {total}")
+    return total
+
+
+def degenerate_cfg(cfg_mod, equilibrium: bool = False, **over):
+    """tests/test_degenerate_pipeline.py's `kf_cfg` (float64, P=8, K=16,
+    source 1024, target 16384, map 65536, the KF with its IMU noise; with
+    `equilibrium` point-to-plane with the MAP prior and 60 iterations
+    without early stop)."""
+    base = dict(
+        icp=cfg_mod.SteinICPConfig(
+            particle_count=8, iterations=60 if equilibrium else 30, lr=1.0,
+            max_dist=2.8, knn_count=16,
+            residual="point_to_plane" if equilibrium else "point_to_point",
+            prior_information=equilibrium, early_stop=not equilibrium,
+            convergence_threshold=5e-4, source_capacity=1024, target_capacity=16384),
+        map=cfg_mod.MapConfig(voxel_size=0.5, max_points_per_voxel=10,
+                              max_range=120.0, capacity=65536),
+        preprocess=cfg_mod.PreprocessConfig(min_range=1.0, max_range=50.0,
+                                            voxel_size=0.5, raw_capacity=8192),
+        lio=cfg_mod.LIOConfig(estimator="kf", frame_gap_seconds=0.0),
+        imu=cfg_mod.IMUNoiseConfig.from_yaml_units(
+            [2.0, 2.0, 10.0], [50.0] * 3, [20.0] * 3, [500.0] * 3),
+        dtype="float64")
+    base.update(over)
+    return cfg_mod.PipelineConfig(**base)
+
+
+DEGENERATE_FRAMES = 10
+# the particle prior box's variance (SteinICPConfig's init_lb/ub): r = var / this
+DEGENERATE_PRIOR_VAR = (2 * np.abs(np.array([-0.3, -0.2, -0.1, -0.004, -0.004,
+                                             -0.012]))) ** 2 / 12.0
+
+
+def run_degenerate(cfg, kind: str, device: str = "cuda"):
+    """The JAX package's degenerate run (straight along x at 1 m/s, 1.5 m
+    up, 4,000-point scans, synthetic IMU fed first) on a DegenerateWorld
+    scene -> (pipeline, ground-truth translations, launches)."""
+    import torch
+
+    from svnicp_tpu_torch.core.imu import GRAVITY
+    from svnicp_tpu_torch.io import datasets
+    from svnicp_tpu_torch.runtime import pipeline as pl
+
+    n = DEGENERATE_FRAMES
+    times = np.arange(n) * 0.1
+    rots = np.tile(np.eye(3), (n, 1, 1))
+    trans = np.zeros((n, 3))
+    trans[:, 0] = times
+    trans[:, 2] = 1.5
+    world = datasets.DegenerateWorld(kind)
+    rng = np.random.default_rng(0)
+    pipe = pl.LIOPipeline(cfg, device=device)
+    for key in KERNELS:
+        _wrapper(key).launches = 0
+    for t, acc, gyro in datasets.synthetic_imu(times, rots, trans, GRAVITY):
+        pipe.feed_imu(t, acc, gyro)
+    for i in range(n):
+        pipe.feed_scan(float(times[i]), world.scan_at(rng, rots[i], trans[i], n_points=4000))
+    pipe.close()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return pipe, trans, {key: _wrapper(key).launches for key in KERNELS}
+
+
+def _ratios(pipe) -> np.ndarray:
+    v = np.stack([o.var_icp.cpu().numpy() for o in pipe.outputs[1:]])
+    return np.median(v, axis=0) / DEGENERATE_PRIOR_VAR
+
+
+def _errors(pipe, trans) -> np.ndarray:
+    return np.stack([o.pose_t.cpu().numpy() for o in pipe.outputs]) - (trans - trans[0])
+
+
+def check_degenerate_claim(kind: str, r, err, pipe) -> None:
+    """tests/test_degenerate_pipeline.py's assertions on r and containment."""
+    assert np.isfinite(err).all(), (kind, err)
+    if kind == "corridor":
+        assert r[0] > 0.15 and r[1] < 0.05 and r[5] < 0.01 and r[0] > 10.0 * r[1], r
+        assert np.abs(err[:, 1]).max() < 0.15 and np.abs(err[:, 2]).max() < 0.15, err
+        assert np.abs(err[:, 0]).max() < 1.0, err
+        assert all(o.align_ok for o in pipe.outputs[1:])
+    elif kind == "tunnel":
+        assert r[0] > 0.15 and r[1] < 0.01 and r[2] < 0.3 and r[0] > 50.0 * r[1], r
+        assert np.abs(err[:, 1]).max() < 0.15 and np.abs(err[:, 2]).max() < 0.15, err
+        assert np.abs(err[:, 0]).max() < 1.0, err
+    else:
+        assert r[0] > 0.15 and r[1] > 0.15 and r[5] > 0.15, r
+        assert r[2] < 1e-2 and r[4] < 1e-2, r
+        assert np.abs(err[:, 2]).max() < 0.15, err
+
+
+def run_degenerate_phase(cfg_mod, smi) -> dict:
+    """Phase 15: tests/test_degenerate_pipeline.py's scenes on the card.
+    Corridor, tunnel and plane at kf_cfg(equilibrium=True) (float64, the
+    XLA route: no kernel may launch) with the JAX test's thresholds on the
+    prior-relative ratios r and its containment limits; then the same
+    scenes in float32 on the kernel route (B1 at k=16, B2 and B3 at P=8):
+    the launch counts, finite poses and align_ok, r printed beside the
+    float64 run's and not held to the float64 thresholds (float32 ratios
+    move with the summation order); then the HDL-64 segmentation case
+    (float32, 64 x 2250 raycast scans, the ICP estimator, the XLA route)
+    with the JAX test's assertions and its first frame's map points equal
+    to the same frame's on the CPU -> launches of the float32 runs."""
+    import dataclasses
+
+    import torch
+
+    from svnicp_tpu_torch.io import datasets
+    from svnicp_tpu_torch.runtime import pipeline as pl
+
+    t_phase = time.perf_counter()
+    total = {key: 0 for key in KERNELS}
+    r64 = {}
+    for kind in ("corridor", "tunnel", "plane"):
+        pipe, trans, launches = run_degenerate(degenerate_cfg(cfg_mod, True), kind)
+        r, err = _ratios(pipe), _errors(pipe, trans)
+        kd = np.stack([o.kf_cov_diag.cpu().numpy() for o in pipe.outputs[2:]])
+        print(f"degenerate {kind} (float64, the XLA route): r = {np.array2string(r, precision=4)}; "
+              f"kf_cov_diag position block (median over frames 2-9) "
+              f"{np.array2string(np.median(kd[:, 0:3], axis=0), precision=4)}; max |error| "
+              f"per axis {np.array2string(np.abs(err).max(axis=0), precision=4)} m; "
+              f"iterations {[o.icp_iterations for o in pipe.outputs]}")
+        assert all(v == 0 for v in launches.values()), launches
+        check_degenerate_claim(kind, r, err, pipe)
+        r64[kind] = r
+    for kind in ("corridor", "tunnel", "plane"):
+        cfg = degenerate_cfg(cfg_mod, True, dtype="float32")
+        cfg = dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, use_pallas=True))
+        pipe, trans, launches = run_degenerate(cfg, kind)
+        iters = sum(o.icp_iterations for o in pipe.outputs)
+        r = _ratios(pipe)
+        print(f"degenerate {kind} (float32, the kernel route): r = "
+              f"{np.array2string(r, precision=4)} beside float64's "
+              f"{np.array2string(r64[kind], precision=4)}; launches {launches}")
+        assert launches["B1"] == DEGENERATE_FRAMES - 1, launches
+        assert launches["B2"] == launches["B3"] == iters > 0, (launches, iters)
+        assert launches["B4"] == launches["B5"] == 0, launches
+        assert np.isfinite(_errors(pipe, trans)).all()
+        assert all(o.align_ok for o in pipe.outputs), kind
+        for key in KERNELS:
+            total[key] += launches[key]
+    # HDL-64 segmentation
+    cfg = degenerate_cfg(
+        cfg_mod, preprocess=cfg_mod.PreprocessConfig(
+            min_range=1.0, max_range=50.0, voxel_size=0.5, use_segmentation=True,
+            sensor_model="hdl64", raw_capacity=147456),
+        lio=cfg_mod.LIOConfig(estimator="icp", frame_gap_seconds=0.0), dtype="float32")
+    world = datasets.SyntheticWorld(extent=40.0, n_walls=18, n_boxes=12, seed=5)
+    times = np.arange(3) * 0.1
+    trans = np.zeros((3, 3))
+    trans[:, 0] = times
+    trans[:, 2] = 1.5
+    rng = np.random.default_rng(0)
+    scans = [datasets.raycast_scan(world._surfaces, np.eye(3), trans[i], max_range=50.0,
+                                   rng=rng) for i in range(3)]
+    pipe = pl.LIOPipeline(cfg, device="cuda")
+    for key in KERNELS:
+        _wrapper(key).launches = 0
+    for i in range(3):
+        pipe.feed_scan(float(times[i]), scans[i])
+    pipe.close()
+    torch.cuda.synchronize()
+    cpu = pl.LIOPipeline(cfg, device="cpu")
+    cpu.feed_scan(0.0, scans[0])
+    n_raw = [len(s) for s in scans]
+    err = _errors(pipe, trans)
+    print(f"degenerate HDL-64 segmentation (float32, 64 x 2250 rays): raw returns {n_raw}, "
+          f"first-frame map points {int(pipe.outputs[0].map_points)} (the CPU: "
+          f"{int(cpu.outputs[0].map_points)}), last-frame error "
+          f"{np.array2string(err[-1], precision=4)} m")
+    assert min(n_raw) > 60_000, n_raw
+    assert np.isfinite(err).all() and np.abs(err[-1]).max() < 0.2, err
+    assert int(pipe.outputs[0].map_points) < n_raw[0] // 2
+    assert int(pipe.outputs[0].map_points) == int(cpu.outputs[0].map_points)
+    assert all(_wrapper(key).launches == 0 for key in KERNELS)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s of wall time  [{smi}]")
+    return total
+
+
 def moments_bound(params, prep, k: int, point_floats: int, slot_ops: float,
                   point_ops: float) -> tuple[float, str]:
     """What a moments function (B2, B4) needs on this run's data, not the
@@ -1884,6 +2180,12 @@ def main() -> int:
     # ---- 13. the CLI: demo with JSONL records, record + stream
     claunches = run_cli_phase(smi)
 
+    # ---- 14. the main path batched and through the threaded ingest
+    blaunches = run_batch_phase(cfg, frames, pipe, smi)
+
+    # ---- 15. the degenerate scenes
+    xlaunches = run_degenerate_phase(cfg_mod, smi)
+
     rows = []
     for key, (_, name, source, replaces) in KERNELS.items():
         row = table[key]
@@ -1891,7 +2193,7 @@ def main() -> int:
                          launches=sum(x[key] for x in (launches, glaunches, vlaunches,
                                                         flaunches, slaunches, dlaunches,
                                                         wlaunches, olaunches, llaunches,
-                                                        claunches)),
+                                                        claunches, blaunches, xlaunches)),
                          max_abs_err=max(errs[key]), ms=row["ms"],
                          plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                          bound_by=row["bound_by"], library_ms=None))

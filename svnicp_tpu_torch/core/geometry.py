@@ -105,6 +105,20 @@ def euler_zyx_to_matrix(roll: torch.Tensor, pitch: torch.Tensor,
     ], dim=-2)
 
 
+def matrix_to_euler_zyx(R: torch.Tensor) -> torch.Tensor:
+    """[...,3,3] -> [...,3] = [roll, pitch, yaw] of R = Rz Ry Rx (ref:
+    SVGDICP.cpp:266-272); batched over the leading axes."""
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    sp = torch.clamp(-R[..., 2, 0], -1.0, 1.0)
+    pitch = torch.atan2(sp, torch.sqrt(torch.clamp_min(1.0 - sp * sp, 0.0)))
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+# the JAX package's vmapped alias; matrix_to_euler_zyx batches already
+bmatrix_to_euler = matrix_to_euler_zyx
+
+
 def euler_zyx_partials(roll: torch.Tensor, pitch: torch.Tensor,
                        yaw: torch.Tensor) -> torch.Tensor:
     """dR/d(roll, pitch, yaw) of `euler_zyx_to_matrix` in closed form;
@@ -157,6 +171,13 @@ def transform_inverse(R, t):
 def transform_points(R, t, pts):
     """Apply (R [3,3], t [3]) to pts [...,3]."""
     return (pts.reshape(-1, 3) @ R.T).reshape(pts.shape) + t
+
+
+def interpolate_pose(R0, t0, R1, t1, alpha):
+    """Geodesic interpolation T0 exp(alpha log(T0^-1 T1)) for a scalar
+    alpha."""
+    xi = se3_log(*transform_compose(*transform_inverse(R0, t0), R1, t1))
+    return transform_compose(R0, t0, *se3_exp(alpha * xi))
 
 
 def kabsch(src: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor):

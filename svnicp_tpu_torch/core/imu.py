@@ -6,8 +6,9 @@ the JAX package keeps them (ref: IMU.cpp:20-58):
   frame (`R g dt`) while the one of the position is not;
 - the attitude increment composes as Euler RzRyRx of (gyro dt), not the
   exponential map.
-The linear interpolation of a sample at the LiDAR stamp lives on the host,
-in `runtime/ingest.py`, as in the JAX package's LIOPipeline.
+The pipeline interpolates a sample at the LiDAR stamp on the host, in
+`runtime/ingest.py`, as the JAX package's LIOPipeline does; `interpolate`
+is the reference's own form of that interpolation.
 """
 
 from __future__ import annotations
@@ -63,3 +64,21 @@ def propagate(state: NavState, imu_start: IMUSample,
     rot_vec = imu_start.gyro * dt
     d_r = geo.euler_zyx_to_matrix(rot_vec[0], rot_vec[1], rot_vec[2])
     return NavState(state.r @ d_r, t_new, vel)
+
+
+def interpolate(lidar_offset: torch.Tensor, imu_gap: torch.Tensor,
+                imu_pre: IMUSample, imu_current: IMUSample
+                ) -> tuple[IMUSample, IMUSample, IMUSample]:
+    """Linear interpolation of an IMU sample at the LiDAR stamp, from the
+    offset of the stamp after `imu_pre` and the gap between the two
+    samples -> (pre', mid, cur') with the reference's dt bookkeeping (ref:
+    IMUInterpolation, IMU.cpp:65-79): pre'.dt = the pre->lidar gap,
+    cur'.dt = the lidar->cur gap, and mid.dt = 0 (the reference leaves the
+    interpolated sample's dt default-initialised, DataTypes.h:132)."""
+    ratio = lidar_offset / torch.clamp_min(imu_gap, 1e-9)
+    mid = IMUSample(torch.zeros_like(lidar_offset),
+                    (1.0 - ratio) * imu_pre.acc + ratio * imu_current.acc,
+                    (1.0 - ratio) * imu_pre.gyro + ratio * imu_current.gyro)
+    pre = IMUSample(lidar_offset, imu_pre.acc, imu_pre.gyro)
+    cur = IMUSample(imu_gap - lidar_offset, imu_current.acc, imu_current.gyro)
+    return pre, mid, cur

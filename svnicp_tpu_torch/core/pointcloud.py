@@ -71,6 +71,15 @@ class PaddedCloud(NamedTuple):
         return self.valid.sum()
 
 
+def from_numpy(points, capacity: int, dtype=torch.float32, device=None
+               ) -> PaddedCloud:
+    """Pad or truncate a host [N,3] array into a cloud of `capacity` rows."""
+    n = min(len(points), capacity)
+    pts = torch.zeros((capacity, 3), dtype=dtype)
+    pts[:n] = torch.as_tensor(points[:n]).to(dtype)
+    return PaddedCloud(pts.to(device), (torch.arange(capacity) < n).to(device))
+
+
 def _pack(v: torch.Tensor) -> torch.Tensor:
     v = v.to(torch.int64)
     vx = (v[:, 0] + _HALF) & _MASK

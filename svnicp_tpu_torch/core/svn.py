@@ -72,6 +72,30 @@ class AlignPrep(NamedTuple):
     kernel: nn.PlanePrep | nn.PointPrep | None   # the kernel route's layout
 
 
+def init_particles_uniform(generator: torch.Generator, count: int, lb, ub,
+                           dtype=torch.float32, device=None) -> torch.Tensor:
+    """A uniform particle prior in the box [lb, ub), [P,6], drawn from
+    `generator` (the JAX package draws from a PRNG key); one particle is
+    the zero pose (ref: svn-icp/src/core/ICPUtils.cpp:45-58)."""
+    if count == 1:
+        return torch.zeros((1, 6), dtype=dtype, device=device)
+    lb = torch.as_tensor(lb, dtype=dtype, device=device)
+    ub = torch.as_tensor(ub, dtype=dtype, device=device)
+    u = torch.rand((count, 6), generator=generator, dtype=dtype, device=device)
+    return lb + (ub - lb) * u
+
+
+def init_particles_gaussian(generator: torch.Generator, count: int, std,
+                            dtype=torch.float32, device=None) -> torch.Tensor:
+    """A zero-mean Gaussian particle prior clamped at 3 sigma, [P,6], drawn
+    from `generator` (ref: svn-icp/src/core/ICPUtils.cpp:60-75)."""
+    if count == 1:
+        return torch.zeros((1, 6), dtype=dtype, device=device)
+    std = torch.as_tensor(std, dtype=dtype, device=device)
+    z = torch.randn((count, 6), generator=generator, dtype=dtype, device=device) * std
+    return torch.clamp(z, -3.0 * std, 3.0 * std)
+
+
 def prior_inverse_variance(cfg: SteinICPConfig, dtype, device) -> torch.Tensor:
     """[6] precision of the particle-box prior N(0, (ub-lb)^2/12)."""
     lb = torch.tensor(cfg.init_lb, dtype=dtype, device=device)

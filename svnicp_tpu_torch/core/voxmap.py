@@ -54,6 +54,11 @@ def create(capacity: int, dtype=torch.float32, device=None) -> VoxelMap:
     )
 
 
+def get_all(vmap: VoxelMap) -> PaddedCloud:
+    """The whole map as a padded cloud (ref: GetMap(), VoxelHashMap.cpp:43-49)."""
+    return PaddedCloud(vmap.points, vmap.valid)
+
+
 def _run_starts(sorted_key: torch.Tensor) -> torch.Tensor:
     first = torch.ones_like(sorted_key, dtype=torch.bool)
     first[1:] = sorted_key[1:] != sorted_key[:-1]

@@ -1,14 +1,16 @@
 // Host-side frame staging for the PyTorch port: range crop + pad, and one
-// stage of the uniform downsample, each also in a form that carries the
-// per-point sweep times of the rows it keeps; and the two loaders of the
-// log and dataset readers, KITTI's velodyne .bin files and the per-point
-// time field of interleaved point records. The port's own copy of
-// svn_stage_scan, svn_stage_scan_ts, svn_downsample_one_stage,
-// svn_downsample_one_stage_ts, svn_read_kitti_bin and
-// svn_extract_timestamps from native/svnicp_native.cpp, with the same
-// arithmetic, so the staged clouds and the times are byte-equal to the JAX
-// package's. Plain C ABI, bound with ctypes (svnicp_tpu_torch/io/native.py);
-// built with g++ at first use.
+// stage of the uniform downsample (and both stages back to back), each
+// also in a form that carries the per-point sweep times of the rows it
+// keeps; the two loaders of the log and dataset readers, KITTI's velodyne
+// .bin files and the per-point time field of interleaved point records;
+// and the lock-free single-producer single-consumer ring of scans that the
+// threaded ingest feeds. The port's own copy of svn_stage_scan,
+// svn_stage_scan_ts, svn_downsample_one_stage, svn_downsample_one_stage_ts,
+// svn_downsample_two_stage, svn_read_kitti_bin, svn_extract_timestamps and
+// svn_ring_* from native/svnicp_native.cpp, with the same arithmetic, so
+// the staged clouds and the times are byte-equal to the JAX package's.
+// Plain C ABI, bound with ctypes (svnicp_tpu_torch/io/native.py); built
+// with g++ at first use.
 //
 // Downsample semantics (bit-compatible with core/pointcloud.downsample_uniform):
 //  - voxel id: floor(p / v) per axis in f32 (divide, never multiply by a
@@ -17,6 +19,7 @@
 //  - compact voxels in ascending (hash32(key) & -2) order, ties by key.
 
 #include <algorithm>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -197,6 +200,20 @@ int svn_downsample_one_stage_ts(const float* xyz, const float* ts, int n,
   return m;
 }
 
+// to_map = one stage of the input at 0.5 * voxel, capped at map_capacity;
+// source = one stage of to_map at 1.5 * voxel, capped at src_capacity. Both
+// zero-padded to their capacities; the counts go to n_map and n_src.
+void svn_downsample_two_stage(const float* xyz, int n, float voxel,
+                              float* out_map, int map_capacity, int* n_map,
+                              float* out_src, int src_capacity, int* n_src) {
+  const int m = svn_downsample_stage(xyz, n, 0.5f * voxel, out_map, map_capacity);
+  const int s = svn_downsample_stage(out_map, m, 1.5f * voxel, out_src, src_capacity);
+  std::memset(out_map + 3 * m, 0, sizeof(float) * 3 * (map_capacity - m));
+  std::memset(out_src + 3 * s, 0, sizeof(float) * 3 * (src_capacity - s));
+  *n_map = m;
+  *n_src = s;
+}
+
 // KITTI velodyne .bin (float32 x, y, z, intensity records) -> [n,3] in
 // out_xyz, at most `capacity` points. Returns n, or -1 when the file
 // cannot be opened.
@@ -241,6 +258,68 @@ int svn_extract_timestamps(const uint8_t* data, int n, int stride, int offset,
     out[i] = (float)((v - mn) * inv);
   }
   return 1;
+}
+
+// Lock-free SPSC ring of fixed-size scan slots: one producer thread feeds
+// scans, one consumer drains them. A full ring refuses the push (the
+// producer retries); a scan longer than a slot keeps its first
+// slot_floats / 3 points.
+struct SvnRing {
+  int slots;
+  int slot_floats;
+  std::vector<float> data;        // [slots * slot_floats]
+  std::vector<double> stamps;     // [slots]
+  std::vector<int> counts;        // [slots]
+  std::atomic<uint64_t> head{0};  // next write
+  std::atomic<uint64_t> tail{0};  // next read
+};
+
+void* svn_ring_create(int slots, int slot_floats) {
+  auto* r = new SvnRing();
+  r->slots = slots;
+  r->slot_floats = slot_floats;
+  r->data.resize((size_t)slots * slot_floats);
+  r->stamps.resize(slots);
+  r->counts.resize(slots);
+  return r;
+}
+
+void svn_ring_destroy(void* h) { delete static_cast<SvnRing*>(h); }
+
+int svn_ring_size(void* h) {
+  auto* r = static_cast<SvnRing*>(h);
+  return (int)(r->head.load(std::memory_order_acquire) -
+               r->tail.load(std::memory_order_acquire));
+}
+
+// Push one scan of n points; returns 1, or 0 (nothing stored) when full.
+int svn_ring_push(void* h, const float* xyz, int n, double stamp) {
+  auto* r = static_cast<SvnRing*>(h);
+  const uint64_t head = r->head.load(std::memory_order_relaxed);
+  const uint64_t tail = r->tail.load(std::memory_order_acquire);
+  if (head - tail >= (uint64_t)r->slots) return 0;
+  const int slot = (int)(head % r->slots);
+  const int m = n * 3 <= r->slot_floats ? n : r->slot_floats / 3;
+  std::memcpy(&r->data[(size_t)slot * r->slot_floats], xyz, sizeof(float) * 3 * m);
+  r->counts[slot] = m;
+  r->stamps[slot] = stamp;
+  r->head.store(head + 1, std::memory_order_release);
+  return 1;
+}
+
+// Pop the oldest scan into out_xyz and out_stamp; returns its point count,
+// or -1 when the ring is empty.
+int svn_ring_pop(void* h, float* out_xyz, double* out_stamp) {
+  auto* r = static_cast<SvnRing*>(h);
+  const uint64_t tail = r->tail.load(std::memory_order_relaxed);
+  const uint64_t head = r->head.load(std::memory_order_acquire);
+  if (tail >= head) return -1;
+  const int slot = (int)(tail % r->slots);
+  const int n = r->counts[slot];
+  std::memcpy(out_xyz, &r->data[(size_t)slot * r->slot_floats], sizeof(float) * 3 * n);
+  *out_stamp = r->stamps[slot];
+  r->tail.store(tail + 1, std::memory_order_release);
+  return n;
 }
 
 }  // extern "C"

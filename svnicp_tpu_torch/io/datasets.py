@@ -1,6 +1,6 @@
 """Synthetic ground-truthed LiDAR sequences and the KITTI readers (port of
 `svnicp_tpu/io/datasets.py`: `SyntheticWorld.scan_at` and `scan_sweep`,
-`raycast_sweep`, `DegenerateWorld`, `synthetic_trajectory`,
+`raycast_scan`, `raycast_sweep`, `DegenerateWorld`, `synthetic_trajectory`,
 `circular_trajectory`, `synthetic_imu`, and the KITTI odometry format). The
 same numpy draws in the same order, so a scan made here from a seed is
 byte-equal to the JAX package's (a sweep equal to float32 rounding)."""
@@ -108,6 +108,49 @@ class SyntheticWorld:
         mid_t = pose0_r @ tm.numpy() + pose0_t
         local += rng.normal(scale=noise, size=local.shape)
         return local.astype(np.float32), tau, (mid_r, mid_t)
+
+
+def raycast_scan(surfaces, pose_r: np.ndarray, pose_t: np.ndarray,
+                 n_scan: int = 64, horizon: int = 2250,
+                 ang_res_y: float = 26.8 / 63.0, ang_bottom: float = 24.8,
+                 max_range: float = 80.0, noise: float = 0.02,
+                 col_step: int = 1, rng=None) -> np.ndarray:
+    """A rotating-LiDAR scan raycast with the full HDL-64 ray pattern (64
+    rings x 2250 azimuth steps by default, the geometry the reference's
+    segmentation hard-codes, ref: ImageProjection.h:63-68), so the range-
+    image pipeline runs at its true shape. `surfaces` is a list of finite
+    rectangles (origin, u, v, u_len, v_len), as SyntheticWorld holds them;
+    a ray that hits nothing within `max_range` gives no return.
+    `col_step` decimates azimuth columns. Returns sensor-frame points
+    [N,3] f32, with Gaussian noise of `noise` m per coordinate."""
+    rows = np.arange(n_scan)
+    cols = np.arange(0, horizon, col_step)
+    vert = np.radians(-ang_bottom + rows * ang_res_y)            # [R]
+    horiz = np.radians(90.0 - cols * (360.0 / horizon))          # [C]
+    cv, sv = np.cos(vert)[:, None], np.sin(vert)[:, None]
+    ch, sh = np.cos(horiz)[None, :], np.sin(horiz)[None, :]
+    # the projection's convention: vert = atan2(z, hypot(x, y)), horiz = atan2(x, y)
+    dirs = np.stack([cv * sh, cv * ch, np.broadcast_to(sv, (n_scan, len(cols)))],
+                    axis=-1).reshape(-1, 3)                      # [R*C,3]
+    dirs_w = dirs @ pose_r.T
+    best_t = np.full(len(dirs), np.inf)
+    for (o, u, v, ul, vl) in surfaces:
+        n = np.cross(u, v)
+        denom = dirs_w @ n
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = ((o - pose_t) @ n) / denom
+            p = pose_t[None] + t[:, None] * dirs_w
+            a = (p - o[None]) @ u
+            b = (p - o[None]) @ v
+            hit = (np.abs(denom) > 1e-9) & (t > 0.3) & (t < max_range) \
+                & (a >= 0) & (a <= ul) & (b >= 0) & (b <= vl)
+        best_t = np.where(hit & (t < best_t), t, best_t)
+    ok = np.isfinite(best_t)
+    pts = best_t[ok, None] * dirs[ok]
+    if noise > 0:
+        rng = rng or np.random.default_rng(0)
+        pts = pts + rng.normal(scale=noise, size=pts.shape)
+    return pts.astype(np.float32)
 
 
 def raycast_sweep(surfaces, pose0_r, pose0_t, pose1_r, pose1_t,

@@ -1,10 +1,11 @@
-"""Host frame staging: range crop + pad, and one uniform-downsample stage,
-each also carrying per-point sweep times; the KITTI .bin reader and the
-per-point time field of a log's point records.
+"""Host frame staging: range crop + pad, and one uniform-downsample stage
+(or both stages), each also carrying per-point sweep times; the KITTI .bin
+reader and the per-point time field of a log's point records; and
+`ScanRing`, the lock-free scan queue of the threaded ingest.
 
 ctypes bindings for `csrc/host_staging.cpp`, the port's own copy of the
-six host functions of `native/svnicp_native.cpp` the odometry path and the
-readers call. The
+host functions of `native/svnicp_native.cpp` the odometry path, the
+readers and the threaded ingest call. The
 library is built with g++ into `build/svnicp_tpu_torch/` at first use (the
 JAX package's flags, so both produce the same bytes); if it cannot be
 built, the staging functions raise. The numpy versions beside them compute
@@ -13,6 +14,7 @@ the same selection and order and are the tests' plain versions.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -71,6 +73,23 @@ def library() -> ctypes.CDLL:
         lib.svn_extract_timestamps.argtypes = [
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, fptr]
+        iptr = ctypes.POINTER(ctypes.c_int)
+        lib.svn_downsample_two_stage.restype = None
+        lib.svn_downsample_two_stage.argtypes = [
+            fptr, ctypes.c_int, ctypes.c_float, fptr, ctypes.c_int, iptr, fptr,
+            ctypes.c_int, iptr]
+        lib.svn_ring_create.restype = ctypes.c_void_p
+        lib.svn_ring_create.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.svn_ring_destroy.restype = None
+        lib.svn_ring_destroy.argtypes = [ctypes.c_void_p]
+        lib.svn_ring_size.restype = ctypes.c_int
+        lib.svn_ring_size.argtypes = [ctypes.c_void_p]
+        lib.svn_ring_push.restype = ctypes.c_int
+        lib.svn_ring_push.argtypes = [ctypes.c_void_p, fptr, ctypes.c_int,
+                                      ctypes.c_double]
+        lib.svn_ring_pop.restype = ctypes.c_int
+        lib.svn_ring_pop.argtypes = [ctypes.c_void_p, fptr,
+                                     ctypes.POINTER(ctypes.c_double)]
         _lib = lib
         return lib
 
@@ -144,6 +163,87 @@ def downsample_one_stage_ts(xyz: np.ndarray, ts: np.ndarray | None, voxel: float
     return out, out_ts, n
 
 
+def downsample_two_stage(xyz: np.ndarray, voxel: float, src_capacity: int,
+                         map_capacity: int
+                         ) -> tuple[np.ndarray, int, np.ndarray, int]:
+    """Both downsample stages: to_map = one stage of the input at
+    0.5 * voxel, source = one stage of to_map at 1.5 * voxel -> (map rows
+    [map_capacity,3] zero-padded, n_map, source rows [src_capacity,3]
+    zero-padded, n_src)."""
+    lib = library()
+    xyz = np.ascontiguousarray(xyz, np.float32)
+    out_map = np.zeros((map_capacity, 3), np.float32)
+    out_src = np.zeros((src_capacity, 3), np.float32)
+    n_map, n_src = ctypes.c_int(), ctypes.c_int()
+    lib.svn_downsample_two_stage(_fptr(xyz), len(xyz), voxel, _fptr(out_map),
+                                 map_capacity, ctypes.byref(n_map),
+                                 _fptr(out_src), src_capacity, ctypes.byref(n_src))
+    return out_map, n_map.value, out_src, n_src.value
+
+
+class ScanRing:
+    """Lock-free single-producer single-consumer queue of scans (the
+    threaded ingest's), `slots` scans of at most `max_points` points each,
+    in the native library. A full ring refuses a push (returns False: the
+    producer retries), and a longer scan keeps its first `max_points`
+    points."""
+
+    def __init__(self, slots: int = 16, max_points: int = 1 << 17):
+        self._lib = library()
+        self._max_points = max_points
+        self._h = self._lib.svn_ring_create(slots, max_points * 3)
+
+    def push(self, xyz: np.ndarray, stamp: float) -> bool:
+        xyz = np.ascontiguousarray(xyz, np.float32)
+        return bool(self._lib.svn_ring_push(self._h, _fptr(xyz), len(xyz), stamp))
+
+    def pop(self) -> tuple[np.ndarray, float] | None:
+        """The oldest scan and its stamp, or None when the ring is empty."""
+        out = np.empty((self._max_points, 3), np.float32)
+        stamp = ctypes.c_double()
+        n = self._lib.svn_ring_pop(self._h, _fptr(out), ctypes.byref(stamp))
+        if n < 0:
+            return None
+        return out[:n], stamp.value
+
+    def __len__(self) -> int:
+        return self._lib.svn_ring_size(self._h)
+
+    def __del__(self):
+        if getattr(self, "_h", None) is not None:
+            self._lib.svn_ring_destroy(self._h)
+            self._h = None
+
+
+class ScanRingNumpy:
+    """Plain version of `ScanRing`, with its semantics: a full ring refuses
+    the push and a scan is cut to the slot. (The JAX package's fallback
+    for a missing library drops the oldest scan instead, which loses frames
+    under a lagging consumer; this one does not.)"""
+
+    def __init__(self, slots: int = 16, max_points: int = 1 << 17):
+        self._slots = slots
+        self._max_points = max_points
+        self._queue: collections.deque = collections.deque()
+        self._lock = threading.Lock()
+
+    def push(self, xyz: np.ndarray, stamp: float) -> bool:
+        scan = np.array(np.asarray(xyz, np.float32)[: self._max_points])
+        with self._lock:
+            if len(self._queue) >= self._slots:
+                return False
+            self._queue.append((scan, float(stamp)))
+            return True
+
+    def pop(self) -> tuple[np.ndarray, float] | None:
+        with self._lock:
+            return self._queue.popleft() if self._queue else None
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._queue)
+
+
 _TIME_CODES = {"f4": 0, "f8": 1, "u4": 2}
 
 
@@ -191,6 +291,17 @@ def extract_timestamps_numpy(data, n, stride, offset, dtype):
         return np.empty(n, np.float32), False
     mn = vals.min()
     return ((vals - mn) * (1.0 / (vals.max() - mn))).astype(np.float32), True
+
+
+def downsample_two_stage_numpy(xyz, voxel, src_capacity, map_capacity):
+    """Plain version of `downsample_two_stage` (the stage voxels scaled in
+    float32, as the native code scales them)."""
+    v = np.float32(voxel)
+    out_map, n_map = downsample_one_stage_numpy(xyz, np.float32(0.5) * v,
+                                                map_capacity)
+    out_src, n_src = downsample_one_stage_numpy(out_map[:n_map], np.float32(1.5) * v,
+                                                src_capacity)
+    return out_map, n_map, out_src, n_src
 
 
 def _stage_keep(xyz, min_range, max_range):

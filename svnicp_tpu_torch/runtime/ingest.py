@@ -9,13 +9,16 @@ stage-ahead pair that runs frame k's staging on one worker thread while
 frame k-1 is dispatched (the native calls release the GIL). Every staging
 route packs the frame's IMU window on the calling thread when the frame is
 staged, as the JAX package does, and hands it to the step with the scan.
-The dispatch half stays in `runtime/pipeline.py`.
+`run_threaded` feeds scans from a producer thread through the native
+lock-free ring (`io/native.ScanRing`). The dispatch half stays in
+`runtime/pipeline.py`.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import sys
+import threading
 import time
 from typing import NamedTuple
 
@@ -184,3 +187,55 @@ class IngestDriver:
             "steinicp_time": self.timer.last.get("dispatch", 0.0),
         })
         return out
+
+    def run_threaded(self, scan_stream, ring_slots: int = 16) -> int:
+        """Consume an iterator of (t, points) through a producer thread and
+        the native SPSC ring (`ScanRing`, slots of preprocess.raw_capacity
+        points), running `feed_scan` on the calling thread as scans arrive;
+        then `flush()`. The executor topology of the reference (sensor
+        callbacks on their own threads feeding the ICP worker through ring
+        buffers, ref: SVNICPNode.cpp:24-25, OdometryPipeline.cpp:106-110):
+        the producer only iterates the stream and pushes, retrying while the
+        ring is full, so no scan is dropped. An error in the stream is
+        raised here. Returns the number of frames processed."""
+        ring = native.ScanRing(slots=ring_slots,
+                               max_points=self.cfg.preprocess.raw_capacity)
+        done = threading.Event()
+        failed: list[BaseException] = []
+
+        def producer():
+            try:
+                for t, pts in scan_stream:
+                    if done.is_set():    # the consumer stopped
+                        return
+                    pts = np.asarray(pts, np.float32)
+                    while not ring.push(pts, float(t)):
+                        if done.wait(0.001):
+                            return
+            except BaseException as e:   # handed to the consuming thread
+                failed.append(e)
+            finally:
+                done.set()
+
+        worker = threading.Thread(target=producer, name="svnicp-ingest",
+                                  daemon=True)
+        worker.start()
+        n0 = len(self.outputs)
+        try:
+            while True:
+                item = ring.pop()
+                if item is None:
+                    if done.is_set() and len(ring) == 0:
+                        break
+                    time.sleep(0.0005)
+                    continue
+                pts, t = item
+                self.feed_scan(t, pts)
+            if failed:
+                raise failed[0]
+            # staged-ahead or batched frames may still be pending
+            self.flush()
+        finally:
+            done.set()
+            worker.join()
+        return len(self.outputs) - n0

@@ -603,3 +603,79 @@ def test_posegraph_and_reanchor_on_the_card(dev):
     assert torch.equal(got.vmap.valid.cpu(), want.vmap.valid)
     assert int(want.vmap.valid.sum()) > 1000
     torch.testing.assert_close(got.vmap.points.cpu(), want.vmap.points, rtol=0, atol=1e-12)
+
+
+def _batch_run(dev, batch: int, n_frames: int = 7):
+    """A small host-downsampled ICP run on the card, per frame or batched."""
+    from svnicp_tpu_torch import config as cfg_mod
+    from svnicp_tpu_torch.io import datasets
+    from svnicp_tpu_torch.runtime import pipeline as pl
+
+    cfg = cfg_mod.PipelineConfig(
+        icp=cfg_mod.SteinICPConfig(particle_count=8, iterations=20, knn_count=16,
+                                   residual="point_to_plane", use_pallas=True,
+                                   source_capacity=1024, target_capacity=8192),
+        map=cfg_mod.MapConfig(voxel_size=1.0, capacity=32768),
+        preprocess=cfg_mod.PreprocessConfig(min_range=1.0, max_range=50.0,
+                                            voxel_size=1.0, raw_capacity=8192,
+                                            host_downsample=True),
+        lio=cfg_mod.LIOConfig(estimator="icp", frame_gap_seconds=0.0),
+        dispatch_batch=batch)
+    world = datasets.SyntheticWorld(extent=40.0, seed=3)
+    times, rots, trans = datasets.synthetic_trajectory(n_frames, dt=0.1, speed=1.2, seed=5)
+    rng = np.random.default_rng(5)
+    pipe = pl.LIOPipeline(cfg, device=dev)
+    for i in range(n_frames):
+        pipe.feed_scan(float(times[i]), world.scan_at(rng, rots[i], trans[i], n_points=4000))
+    pipe.close()
+    return pipe
+
+
+def test_batched_step_makes_one_upload_and_one_readback_per_batch(dev):
+    """dispatch_batch=3 over 7 frames (the bootstrap and two batches): one
+    stacked upload and one read-back of the packed outputs per batch, the
+    poses and variances bit-identical to per-frame dispatch, the outputs
+    served on the host; the profiler's host-to-device copies from pinned
+    memory are printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from svnicp_tpu_torch.runtime import packing
+
+    ref = _batch_run(dev, 1)
+    packing.copies.update(upload=0, readback=0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pipe = _batch_run(dev, 3)
+        poses = [o.pose_t for o in pipe.outputs[1:]]
+    assert packing.copies == {"upload": 2, "readback": 2}, packing.copies
+    for a, b in zip(pipe.outputs, ref.outputs):
+        assert torch.equal(a.pose_t.cpu(), b.pose_t.cpu())
+        assert torch.equal(a.var_icp.cpu(), b.var_icp.cpu())
+        assert a.icp_iterations == b.icp_iterations
+    assert all(p.device.type == "cpu" for p in poses)
+    copies = {}
+    for e in prof.key_averages():
+        if "Memcpy" in e.key:
+            copies[e.key] = e.count
+    print(f"copies {packing.copies}; profiler memcpy counts {copies}")
+
+
+def test_host_frame_output_on_the_card_equals_frame_output(dev):
+    """Packing a FrameOutput of the card and reading it through
+    HostFrameOutput gives every field bit for bit, as CPU tensors and the
+    port's host types, with one read-back."""
+    from svnicp_tpu_torch.runtime import packing
+
+    pipe = _batch_run(dev, 1, n_frames=3)
+    out = pipe.outputs[-1]
+    assert out.pose_t.device.type == "cuda"
+    before = packing.copies["readback"]
+    host = packing.HostFrameOutput(packing.pack_output(out))
+    for name, _ in packing._PACK_F32:
+        got = getattr(host, name)
+        assert got.device.type == "cpu"
+        assert torch.equal(got, getattr(out, name).cpu()), name
+    assert host.icp_iterations == out.icp_iterations and type(host.icp_iterations) is int
+    assert host.align_ok is out.align_ok
+    assert int(host.map_points) == int(out.map_points)
+    assert host.particles is out.particles
+    assert packing.copies["readback"] == before + 1

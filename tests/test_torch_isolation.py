@@ -13,6 +13,7 @@ import ast
 import dataclasses
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -115,25 +116,48 @@ def _svgd_variant(case):
     return dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, method="svd"))
 
 
+def _small_svgd(cfg):
+    """The SVGD kernel route cut to a CPU-sized run."""
+    return dataclasses.replace(
+        cfg, icp=dataclasses.replace(cfg.icp, source_capacity=256, target_capacity=2048,
+                                     iterations=3),
+        map=dataclasses.replace(cfg.map, capacity=8192),
+        preprocess=dataclasses.replace(cfg.preprocess, raw_capacity=4096))
+
+
 @pytest.mark.parametrize("case,name", [
     # the file leaves SVGD on the XLA route (first index at ties): ported
     ("as_written", "use_pallas"),
-    # the batched step (one launch for several frames) is not ported
+    # the batched steps (several frames per upload and read-back): ported
     ("dispatch_batch", "dispatch_batch"),
     # the minibatch rows are the port's own draws (or given): ported
     ("use_minibatch", "use_minibatch"),
     ("svd", "method=svd")])
 def test_unported_options_raise(case, name):
-    """What the port does not port yet is refused by name; the SVGD path
-    (generic_svgd.yaml as written and on the kernel route) and the options
-    it now ports construct on the CPU."""
+    """Every SVGD option the port once refused by name now constructs on
+    the CPU, with generic_svgd.yaml as written and on the kernel route; a
+    batch of 4 also runs there: 5 sweeps, the last 4 as one batch."""
     pl.LIOPipeline(_svgd_kernel_route(_svgd_variant("as_written")),
                    device="cpu").close()
+    pl.LIOPipeline(_svgd_variant(case), device="cpu").close()
     if case != "dispatch_batch":
-        pl.LIOPipeline(_svgd_variant(case), device="cpu").close()
         return
-    with pytest.raises(NotImplementedError, match=name):
-        pl.LIOPipeline(_svgd_variant(case), device="cpu")
+    from svnicp_tpu_torch.io import datasets
+    from svnicp_tpu_torch.runtime import packing
+
+    world = datasets.SyntheticWorld(extent=30.0, seed=2)
+    times, rots, trans = datasets.synthetic_trajectory(5, dt=0.1, speed=1.0, seed=2)
+    rng = np.random.default_rng(2)
+    pipe = pl.LIOPipeline(_small_svgd(_svgd_variant(case)), device="cpu")
+    rets = []
+    for i in range(5):
+        pts, tau, _ = world.scan_sweep(rng, rots[i], trans[i], rots[i], trans[i],
+                                       n_points=1500)
+        rets.append(pipe.feed_scan(float(times[i]), pts, timestamps=tau))
+    pipe.close()
+    assert rets[1:4] == [None] * 3 and rets[4] is pipe.outputs[4]
+    assert isinstance(rets[4], packing.HostFrameOutput)
+    assert len(pipe.outputs) == 5 and np.isfinite(pipe.trajectory()).all()
 
 
 @pytest.mark.parametrize("option", ["use_pallas", "stein_kernel"])
@@ -153,11 +177,11 @@ def test_xla_path_options_raise(option):
 
 
 def test_remaining_refusals_are_named():
-    """The pipeline refuses what ROADMAP A11b and A12 still have to port;
-    the pose graph (A11) is ported."""
+    """The pipeline refuses only what ROADMAP A12 still has to port (the
+    sharded map and the device mesh); the pose graph (A11) and batched
+    dispatch (A11b) are ported."""
     cfg = cfg_mod.from_yaml(str(ROOT / "configs" / "tpu_plane.yaml"))
-    for change, name in ((dict(dispatch_batch=2), "dispatch_batch"),
-                         (dict(map=dataclasses.replace(cfg.map, sharded=True)), "map.sharded"),
+    for change, name in ((dict(map=dataclasses.replace(cfg.map, sharded=True)), "map.sharded"),
                          (dict(sharding=dataclasses.replace(cfg.sharding, point_axis=2)),
                           "sharding")):
         with pytest.raises(NotImplementedError, match=name):
@@ -165,6 +189,9 @@ def test_remaining_refusals_are_named():
     pipe = pl.LIOPipeline(dataclasses.replace(cfg, posegraph=dataclasses.replace(
         cfg.posegraph, enabled=True)), device="cpu")
     assert pipe.posegraph is not None
+    pipe = pl.LIOPipeline(dataclasses.replace(cfg, dispatch_batch=2), device="cpu")
+    assert pipe.cfg.dispatch_batch == 2
+    pipe.close()
 
 
 def test_all_configs_load(tmp_path):
