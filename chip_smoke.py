@@ -105,7 +105,33 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    its thresholds on the prior-relative variance ratios and containment;
    the same scenes in float32 on the kernel route (B1 at k=16, B2 and B3
    at P=8) with their launch counts, r printed beside float64's; and the
-   HDL-64 segmentation case with its assertions.
+   HDL-64 segmentation case with its assertions;
+16. the mesh in one process, every shard on the card (`parallel/`,
+   `sharding.make_mesh(p, q, devices=[dev] * n)`): (a) the JAX package's
+   exact-parity dry run (`__graft_entry__.dryrun_multichip`: float64,
+   point-to-point, exact top-k candidates, 6 frames with a re-anchor after
+   frame 3, rebalances every 2 frames; `dryrun_config`) in the sharded-map
+   mode on meshes (4,2) and (2,4) against the single-device port on the
+   card: drift below 1e-4 m, one re-anchor, at least 3 rebalances; its
+   replicated-map mesh step finite; and tests/distributed_worker.py's
+   program on a (2,2) mesh for phase 17. (b) configs/tpu_plane.yaml on a
+   (2,4) mesh on the main path's first 3 + 7 frames (MESH_TIMED: cut from
+   3 + 20, which took 220 s), in the replicated-map mode
+   (B2 on each shard: 8 launches an iteration, B1, B3, B4, B5 none) and in
+   the sharded-map mode (the 131,072-row map in 4 blocks, rebalanced after
+   the bootstrap and at frame 10; no kernel). (c)
+   configs/geode_alpha.yaml on the same mesh on the geode path's first
+   3 + 7 frames with their IMU, replicated-map mode (B4 on each shard). Each of (b) and
+   (c) aligns every frame and stays under ATE max(1.5 x, x + 0.05 m), x
+   the JAX package's own float32 run on its simulated 8-device mesh
+   (MESH_JAX_ATE); frames/s are printed unbounded: 8 shards on one card
+   measure the code's overhead, not scaling. Then B2 and B4 at the shard
+   shapes (P=32 and P=5 particles, 1,024 rows) against their plain
+   versions, timed;
+17. torch.distributed: 4 ranks over gloo on the one card, one shard each
+   of a (2,2) mesh, run tests/distributed_worker.py's program on the port
+   (`distributed_rank`); every rank's trajectory within 1e-4 m of phase
+   16's in-process (2,2) run. A rank's failure or a timeout fails the run.
 Before the paths, one SubT-fast sweep's voxel keys are computed on the
 card and on the CPU: none may differ.
 Each path's launch counts are set to 0 just before it and read just after.
@@ -119,7 +145,8 @@ With `--profile`, a torch.profiler trace of 5 more frames of each path
 The last lines are the kernel table as JSON (`launches` summed over all
 paths, options, the CLI, the batched and threaded runs and the degenerate
 scenes; B1-B3 once more at the loop verification's
-shapes, with its launches), the run's wall time, the line `nvidia-smi --query-gpu=name,power.limit
+shapes, with its launches; B2 and B4 at the mesh's shard shapes, with
+phase 16's launches), the run's wall time, the line `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader` prints, and {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result. It imports nothing of JAX or of
 the JAX package. The whole run takes well under its 1200 s limit; if it ever
@@ -144,6 +171,10 @@ sys.path.insert(0, ROOT)
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 WARMUP, TIMED = 3, 20
+# phase 16's full-width mesh runs: 3 + 7 frames, so one cadence rebalance
+# (frame 10) follows the post-bootstrap one; 8 shards' host work in turn
+# made 3 + 20 frames take 220 s of the run
+MESH_TIMED = 7
 # The JAX package's own LIOPipeline on the GEODE-Alpha path's 23 frames, in
 # float32 on the CPU (tests/test_torch_geode_reference.py, run as a
 # script), reached this ATE [m]; the port on the card must stay under
@@ -271,6 +302,23 @@ LOOP_JAX_CLOSURES = [(2, 22), (3, 22)]
 LOOP_SHAPES = ("B1 (loop)", "B2 (loop)", "B3 (loop)")
 # kernels whose ptxas report must show no spill
 NO_SPILL = ("stein.cu", "plane_moments.cu", "point_moments.cu", "nn_match.cu", "stage1.cu")
+
+
+# Phase 16's limits: max(1.5 x, x + 0.05 m), x the ATE of the JAX package's
+# own float32 run of the same configuration, (2, 4) mesh and WARMUP +
+# MESH_TIMED frames on the CPU's simulated 8-device mesh
+# (tests/test_torch_mesh_reference.py as a script); its iterations are
+# printed beside the port's.
+MESH_JAX_ATE = {
+    "plane": 0.008182441510262865,
+    "plane_sharded": 0.13850601098721405,
+    "geode": 0.024122071036622353,
+}
+MESH_JAX_ITERS = {
+    "plane": [0, 8, 38, 76, 72, 100, 93, 33, 16, 84],
+    "plane_sharded": [0, 35, 20, 16, 100, 14, 25, 94, 12, 100],
+    "geode": [0, 26, 15, 24, 18, 21, 24, 20, 31, 15],
+}
 
 
 def nvidia_smi_line() -> str:
@@ -414,6 +462,151 @@ def option_config(cfg_mod, name: str):
     icp = dataclasses.replace(cfg.icp, **change.get("icp", {}))
     top = {k: v for k, v in change.items() if k != "icp"}
     return dataclasses.replace(cfg, icp=icp, **top)
+
+
+def mesh_config(cfg, sharded: bool, particle_axis: int = 2, point_axis: int = 4):
+    """`cfg` on a (particle_axis, point_axis) mesh: the replicated-map mode,
+    or with `sharded` the map in key-range blocks over the point axis
+    (map.sharded; the file's rebalance cadence). Works on either package's
+    config."""
+    import dataclasses
+
+    sharding = dataclasses.replace(cfg.sharding, particle_axis=particle_axis,
+                                   point_axis=point_axis)
+    return dataclasses.replace(cfg, sharding=sharding,
+                               map=dataclasses.replace(cfg.map, sharded=sharded))
+
+
+def dryrun_config(cfg_mod, particle_shards: int, point_shards: int, sharded: bool):
+    """The JAX package's exact-parity mesh operating point
+    (`__graft_entry__.dryrun_multichip`; tests/distributed_worker.py at
+    point_shards=2): float64, point-to-point, exact top-k candidates,
+    grad-norm stop, the ESKF, a map of 8,192 rows a point shard with target
+    capacity equal to it (the replicated radius query never truncates),
+    rebalanced every 2 frames. `sharded`: the map in blocks over a
+    (particle_shards, point_shards) mesh; else one device, replicated map.
+    Works on either package's config module."""
+    q = point_shards
+    return cfg_mod.PipelineConfig(
+        icp=cfg_mod.SteinICPConfig(
+            particle_count=8, iterations=30, lr=1.0, max_dist=2.8, knn_count=16,
+            early_stop=True, residual="point_to_point", candidate_method="topk",
+            convergence_metric="grad_norm", convergence_threshold=5e-4,
+            source_capacity=64 * q, target_capacity=8192 * q),
+        map=cfg_mod.MapConfig(voxel_size=1.0, max_points_per_voxel=5, max_range=100.0,
+                              capacity=8192 * q, sharded=sharded, rebalance_every=2,
+                              rebalance_sample=64),
+        preprocess=cfg_mod.PreprocessConfig(min_range=0.5, max_range=40.0,
+                                            voxel_size=1.0, raw_capacity=4096),
+        lio=cfg_mod.LIOConfig(estimator="kf", frame_gap_seconds=0.0),
+        sharding=cfg_mod.ShardingConfig(particle_axis=particle_shards if sharded else 1,
+                                        point_axis=point_shards if sharded else 1),
+        dtype="float64")
+
+
+DRYRUN_DELTA = ([0.0, 0.0, 0.04], [0.3, -0.2, 0.1])   # the re-anchor: log R, t
+
+
+def dryrun_inputs(n_frames: int, n_points: int):
+    """The dry run's scans of SyntheticWorld(extent=30, seed=1) along
+    synthetic_trajectory(dt=0.1, speed=1.0, seed=1), their IMU samples and
+    the re-anchor's (delta_r, delta_t)."""
+    from svnicp_tpu_torch.core import geometry as geo
+    from svnicp_tpu_torch.core.imu import GRAVITY
+    from svnicp_tpu_torch.io import datasets
+
+    import torch
+
+    world = datasets.SyntheticWorld(extent=30.0, seed=1)
+    times, rots, trans = datasets.synthetic_trajectory(n_frames, dt=0.1, speed=1.0,
+                                                       seed=1)
+    rng = np.random.default_rng(1)
+    scans = [world.scan_at(rng, rots[i], trans[i], n_points=n_points)
+             for i in range(n_frames)]
+    imu = list(datasets.synthetic_imu(times, rots, trans, GRAVITY))
+    delta_r = geo.so3_exp(torch.tensor(DRYRUN_DELTA[0], dtype=torch.float64)).numpy()
+    return dict(times=times, rots=rots, trans=trans, scans=scans, imu=imu,
+                delta=(delta_r, np.asarray(DRYRUN_DELTA[1], np.float64)))
+
+
+def run_dryrun(cfg, inputs, reanchor_after: int, device, mesh=None, draws=None):
+    """The dry run's program on the port: every IMU sample, then each scan,
+    the re-anchor after frame `reanchor_after`; `draws` [frame] -> [P,6]
+    replaces the port's particle draws (None: its own) -> the pipeline."""
+    from svnicp_tpu_torch.runtime import pipeline as pl
+
+    pipe = pl.LIOPipeline(cfg, device=device, mesh=mesh)
+    for sample in inputs["imu"]:
+        pipe.feed_imu(*sample)
+    for i, scan in enumerate(inputs["scans"]):
+        pipe.feed_scan(float(inputs["times"][i]), scan,
+                       init_particles=None if draws is None else draws[i])
+        if i == reanchor_after:
+            pipe.apply_reanchor(*inputs["delta"])
+    pipe.close()
+    return pipe
+
+
+def distributed_rank(rank: int, world: int, port: int, out_dir: str, device: str,
+                     draws=None) -> None:
+    """One rank of tests/distributed_worker.py's program on the port: join
+    the gloo group on 127.0.0.1:`port`, run the dry run's sharded-map
+    pipeline on a (2, world // 2) mesh, one shard per rank (5 frames of
+    2,000 points, the re-anchor after frame 2), and write the trajectory
+    to `out_dir/traj_<rank>.npy`. Started by torch.multiprocessing."""
+    import torch
+
+    from svnicp_tpu_torch import config as cfg_mod
+    from svnicp_tpu_torch.parallel import distributed
+
+    torch.set_num_threads(1)
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    try:
+        if device == "cuda":
+            from svnicp_tpu_torch import resolve_device
+
+            resolve_device("cuda")
+        cfg = dryrun_config(cfg_mod, 2, world // 2, sharded=True)
+        pipe = run_dryrun(cfg, dryrun_inputs(5, 2000), 2, device, draws=draws)
+        assert pipe.reanchors == 1 and pipe.rebalances >= 3, (pipe.reanchors,
+                                                               pipe.rebalances)
+        assert not pipe.reanchor_drops, pipe.reanchor_drops
+        np.save(os.path.join(out_dir, f"traj_{rank}.npy"), pipe.trajectory())
+    finally:
+        distributed.shutdown()
+
+
+def run_distributed(world: int, device: str, out_dir: str, timeout_s: float,
+                    draws=None) -> list:
+    """`world` ranks of `distributed_rank` on this host (spawned, gloo),
+    all stopped by `timeout_s` -> every rank's trajectory. Any rank's
+    failure or the timeout raises."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(distributed_rank, args=(world, port, out_dir, device, draws),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks did not finish in {timeout_s:.0f} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    return [np.load(os.path.join(out_dir, f"traj_{r}.npy")) for r in range(world)]
+
+
+def mesh_limit(name: str) -> float:
+    """max(1.5 x, x + 0.05 m) of the JAX package's mesh run `name`."""
+    ate = MESH_JAX_ATE[name]
+    return max(1.5 * ate, ate + 0.05)
 
 
 def proxy_sequence(n_frames: int, seed: int = 5, col_step: int = 3):
@@ -974,15 +1167,15 @@ def feed(pipe, frames, lo: int, hi: int) -> None:
         pipe.feed_scan(float(t), scan, timestamps=tau)
 
 
-def run_path(cfg, frames, warmup=WARMUP, timed=TIMED):
-    """A fresh LIOPipeline on the card over warmup + timed frames, with every
-    kernel's launch count set to 0 just before and read just after ->
-    (pipeline, timed wall seconds, launches)."""
+def run_path(cfg, frames, warmup=WARMUP, timed=TIMED, mesh=None):
+    """A fresh LIOPipeline on the card (on `mesh` when given) over warmup +
+    timed frames, with every kernel's launch count set to 0 just before and
+    read just after -> (pipeline, timed wall seconds, launches)."""
     import torch
 
     from svnicp_tpu_torch.runtime import pipeline as pl
 
-    pipe = pl.LIOPipeline(cfg, device="cuda")
+    pipe = pl.LIOPipeline(cfg, device="cuda", mesh=mesh)
     for key in KERNELS:
         _wrapper(key).launches = 0
     feed(pipe, frames, 0, warmup)
@@ -1844,6 +2037,177 @@ def run_degenerate_phase(cfg_mod, smi) -> dict:
     return total
 
 
+def mesh_shard_moments_inputs(icp, src, sv, tgt, tv, dev, rows: int, p_local: int):
+    """Shard (0, 0)'s operands of the replicated-map mesh mode: the first
+    `rows` rows of the stage-B source, their stage-1 candidates by index
+    in the local map (`knn.find_candidates`, the mesh's stage 1), the
+    shard's kernel prep (`sharding.shard_prep`) and `p_local` particles
+    drawn in the prior box."""
+    import torch
+
+    from svnicp_tpu_torch.core import geometry as geo
+    from svnicp_tpu_torch.kernels import knn
+    from svnicp_tpu_torch.parallel import sharding
+
+    src_l, sv_l = src[:rows].contiguous(), sv[:rows].contiguous()
+    idx, d2 = knn.find_candidates(icp, src_l, tgt, sv_l, tv)
+    cand, cvalid = knn.gather_candidates(tgt, idx, d2)
+    prep = sharding.shard_prep(icp, src_l, sv_l, cand, cvalid).kernel
+    g = torch.Generator().manual_seed(4)
+    lo, hi = torch.tensor(icp.init_lb), torch.tensor(icp.init_ub)
+    draw = lo + (hi - lo) * torch.rand((p_local, 6), generator=g)
+    params = torch.cat([geo.so3_exp(draw[:, 3:]).reshape(p_local, 9), draw[:, :3]], -1)
+    return params.to(dev).contiguous(), prep
+
+
+def tiny_mesh_step(cfg_mod, dev) -> np.ndarray:
+    """The replicated-map mesh step of `__graft_entry__.dryrun_multichip`:
+    its tiny float32 point-to-plane configuration on a (4, 2) mesh of the
+    card, a bootstrap and one frame of 200 uniform points in [-10, 10]^3,
+    4 IMU samples at rest between them -> the frame's position."""
+    from svnicp_tpu_torch.core.imu import GRAVITY
+    from svnicp_tpu_torch.parallel import sharding
+    from svnicp_tpu_torch.runtime import pipeline as pl
+
+    cfg = cfg_mod.PipelineConfig(
+        icp=cfg_mod.SteinICPConfig(
+            particle_count=8, iterations=3, lr=1.0, max_dist=2.8, knn_count=8,
+            early_stop=True, residual="point_to_plane", convergence_metric="mean_delta",
+            convergence_threshold=1e-3, source_capacity=64, target_capacity=128),
+        map=cfg_mod.MapConfig(voxel_size=1.0, max_points_per_voxel=5, max_range=100.0,
+                              capacity=1024),
+        preprocess=cfg_mod.PreprocessConfig(min_range=0.5, max_range=40.0,
+                                            voxel_size=1.0, raw_capacity=256),
+        lio=cfg_mod.LIOConfig(estimator="kf", frame_gap_seconds=0.0),
+        sharding=cfg_mod.ShardingConfig(particle_axis=4, point_axis=2))
+    rng = np.random.default_rng(0)
+    pipe = pl.LIOPipeline(cfg, device=dev,
+                          mesh=sharding.make_mesh(4, 2, devices=[dev] * 8))
+    pipe.feed_scan(0.0, rng.uniform(-10, 10, (200, 3)).astype(np.float32))
+    for i in range(1, 5):
+        pipe.feed_imu(0.025 * i, np.array([0.0, 0.0, GRAVITY]), np.zeros(3))
+    out = pipe.feed_scan(0.1, rng.uniform(-10, 10, (200, 3)).astype(np.float32))
+    return out.pose_t.cpu().numpy()
+
+
+MESH_RUNS = {  # name: (config file, sharded map, moments kernel on the path)
+    "plane": ("tpu_plane.yaml", False, "B2"),
+    "plane_sharded": ("tpu_plane.yaml", True, None),
+    "geode": ("geode_alpha.yaml", False, "B4"),
+}
+
+
+def run_mesh_phase(cfg_mod, dev, smi, table, errs, frames, rots, trans, gframes,
+                   grots, gtrans) -> tuple[dict, dict, np.ndarray]:
+    """Phase 16, the full-width runs on WARMUP + MESH_TIMED frames: the mesh
+    in one process, every shard on the card ->
+    (launches, launches at the shard shapes, the (2, 2) run of
+    tests/distributed_worker.py's program for phase 17)."""
+    import torch
+
+    from svnicp_tpu_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+
+    def mesh(p, q):
+        return sharding.make_mesh(p, q, devices=[dev] * (p * q))
+
+    # (a) the exact-parity operating point of dryrun_multichip
+    inputs = dryrun_inputs(6, 2500)
+    for p, q in ((4, 2), (2, 4)):
+        t0 = time.perf_counter()
+        sharded = run_dryrun(dryrun_config(cfg_mod, p, q, True), inputs, 3, dev,
+                             mesh=mesh(p, q))
+        t1 = time.perf_counter()
+        whole = run_dryrun(dryrun_config(cfg_mod, p, q, False), inputs, 3, dev)
+        drift = np.linalg.norm(sharded.trajectory()[:, :3, 3]
+                               - whole.trajectory()[:, :3, 3], axis=1)
+        print(f"mesh ({p},{q}) dry run (float64, sharded map, 6 frames): drift against "
+              f"the single-device port {drift.max():.3g} m; iterations "
+              f"{[o.icp_iterations for o in sharded.outputs]} (single device "
+              f"{[o.icp_iterations for o in whole.outputs]}); rebalances "
+              f"{sharded.rebalances}, re-anchors {sharded.reanchors}, rows shed "
+              f"{sharded.rebalance_drops} / {sharded.reanchor_drops}; "
+              f"{t1 - t0:.1f} s on {p * q} shards, {time.perf_counter() - t1:.1f} s on one  [{smi}]")
+        assert drift.max() < 1e-4, drift
+        assert sharded.reanchors == whole.reanchors == 1
+        assert sharded.rebalances >= 3, sharded.rebalances
+        assert all(o.align_ok for o in sharded.outputs)
+    pose = tiny_mesh_step(cfg_mod, dev)
+    print(f"mesh (4,2) replicated-map step (float32, the XLA route): position {pose}")
+    assert np.isfinite(pose).all(), pose
+    worker = run_dryrun(dryrun_config(cfg_mod, 2, 2, True), dryrun_inputs(5, 2000), 2,
+                        dev, mesh=mesh(2, 2))
+    assert worker.reanchors == 1
+
+    # (b), (c) full width on a (2, 4) mesh: launches, alignment, ATE
+    base = {"tpu_plane.yaml": (frames, rots, trans), "geode_alpha.yaml": (gframes, grots, gtrans)}
+    launches = {key: 0 for key in KERNELS}
+    shard_launches = {}
+    for name, (path, sharded, kernel) in MESH_RUNS.items():
+        cfg = mesh_config(cfg_mod.from_yaml(os.path.join(ROOT, "configs", path)), sharded)
+        fr, r_, t_ = base[path]
+        n = WARMUP + MESH_TIMED
+        pipe, dt, run_launches = run_path(cfg, fr[:n], timed=MESH_TIMED, mesh=mesh(2, 4))
+        mode = "sharded map" if sharded else "replicated map"
+        ate = report_path(f"mesh (2,4) {mode}, configs/{path} [8 shards on one card: "
+                          f"frames/s measures the code's overhead, not scaling]",
+                          pipe, dt, run_launches, r_[:n], t_[:n], smi, None,
+                          stage1=False, timed=MESH_TIMED)
+        iters = sum(o.icp_iterations for o in pipe.outputs)
+        want = {key: 0 for key in KERNELS}
+        if kernel:
+            want[kernel] = 8 * iters
+            shard_launches[f"{kernel} (mesh shard)"] = run_launches[kernel]
+        print(f"mesh {name}: {iters} iterations, launches {run_launches} (want {want}); "
+              f"rebalances {pipe.rebalances}, rows shed {pipe.rebalance_drops}; ATE "
+              f"{ate:.4f} m, limit {mesh_limit(name):.4f} m (the JAX package's float32 "
+              f"run on its simulated 8-device mesh: {MESH_JAX_ATE[name]:.4f} m, "
+              f"{sum(MESH_JAX_ITERS[name])} iterations)")
+        assert run_launches == want, (run_launches, want)
+        assert ate < mesh_limit(name), (ate, mesh_limit(name))
+        if sharded:
+            assert pipe.rebalances == 1 + n // cfg.map.rebalance_every, pipe.rebalances
+        for key in KERNELS:
+            launches[key] += run_launches[key]
+        del pipe
+    torch.cuda.empty_cache()
+
+    # B2 and B4 at the shard shapes against their plain versions, timed
+    for path, key, timer in (("tpu_plane.yaml", "B2", time_plane_moments),
+                             ("geode_alpha.yaml", "B4", time_point_moments)):
+        cfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", path))
+        fr = base[path][0]
+        src, sv, tgt, tv = stage1_inputs(cfg, [f[1] for f in fr], dev)
+        rows, p_local = cfg.icp.source_capacity // 4, cfg.icp.particle_count // 2
+        params, prep = mesh_shard_moments_inputs(cfg.icp, src, sv, tgt, tv, dev, rows,
+                                                 p_local)
+        check_moments(f"mesh shard P={p_local} B={rows} K={prep.feat13.shape[1]}",
+                      params, prep, cfg.icp.max_dist, errs[key])
+        table[f"{key} (mesh shard)"] = timer(params, prep, cfg.icp)
+        errs[f"{key} (mesh shard)"] = [errs[key][-1]]
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s of wall time  [{smi}]")
+    return launches, shard_launches, worker.trajectory()
+
+
+def run_distributed_phase(inproc: np.ndarray, smi) -> None:
+    """Phase 17: 4 gloo ranks on the card, one shard each of a (2, 2) mesh,
+    run tests/distributed_worker.py's program on the port; every rank's
+    trajectory must stay below 1e-4 m of phase 16's in-process (2, 2) run.
+    Any rank's failure or a 300 s timeout fails the run."""
+    out_dir = os.path.join(ROOT, "build", "phase17")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    trajs = run_distributed(4, "cuda", out_dir, timeout_s=300.0)
+    drifts = [float(np.linalg.norm(tr[:, :3, 3] - inproc[:, :3, 3], axis=1).max())
+              for tr in trajs]
+    print(f"phase 17: 4 ranks over gloo on one card, (2,2) mesh, 5 frames: drift "
+          f"against the in-process mesh per rank {drifts} m; "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start  [{smi}]")
+    assert all(np.isfinite(tr).all() and tr.shape == (5, 4, 4) for tr in trajs)
+    assert max(drifts) < 1e-4, drifts
+
+
 def moments_bound(params, prep, k: int, point_floats: int, slot_ops: float,
                   point_ops: float) -> tuple[float, str]:
     """What a moments function (B2, B4) needs on this run's data, not the
@@ -2186,6 +2550,19 @@ def main() -> int:
     # ---- 15. the degenerate scenes
     xlaunches = run_degenerate_phase(cfg_mod, smi)
 
+    # ---- 16. the mesh in one process, every shard on the card
+    mlaunches, at_mesh, inproc = run_mesh_phase(cfg_mod, dev, smi, table, errs, frames,
+                                                rots, trans, gframes, grots, gtrans)
+    for key in at_mesh:
+        row = table[key]
+        print(f"time {key}: kernel {row['ms']:.4f} ms on the device "
+              f"({row['call_ms']:.4f} ms per wrapper call, back to back)  plain "
+              f"{row['plain_ms']:.4f} ms on the device  bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']})  library_ms: none  [{smi}]")
+
+    # ---- 17. torch.distributed: 4 ranks over gloo on the card
+    run_distributed_phase(inproc, smi)
+
     rows = []
     for key, (_, name, source, replaces) in KERNELS.items():
         row = table[key]
@@ -2193,7 +2570,8 @@ def main() -> int:
                          launches=sum(x[key] for x in (launches, glaunches, vlaunches,
                                                         flaunches, slaunches, dlaunches,
                                                         wlaunches, olaunches, llaunches,
-                                                        claunches, blaunches, xlaunches)),
+                                                        claunches, blaunches, xlaunches,
+                                                        mlaunches)),
                          max_abs_err=max(errs[key]), ms=row["ms"],
                          plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                          bound_by=row["bound_by"], library_ms=None))
@@ -2205,6 +2583,16 @@ def main() -> int:
         row = table[key]
         rows.append(dict(name=f"{name} (loop verification)", route="cuda", source=source,
                          replaces=replaces, launches=at_loop[key],
+                         max_abs_err=max(errs[key]), ms=row["ms"],
+                         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                         bound_by=row["bound_by"], library_ms=None))
+    # the mesh's shard shapes: their launches are phase 16's, which the
+    # kernel's own row counts as well
+    for key in at_mesh:
+        _, name, source, replaces = KERNELS[key.split()[0]]
+        row = table[key]
+        rows.append(dict(name=f"{name} (mesh shard)", route="cuda", source=source,
+                         replaces=replaces, launches=at_mesh[key],
                          max_abs_err=max(errs[key]), ms=row["ms"],
                          plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                          bound_by=row["bound_by"], library_ms=None))

@@ -9,6 +9,11 @@ The flags, defaults, JSONL records (io/records.py) and the summary line
 are the JAX package's; `--device` (default: the card) picks where the
 pipeline runs, `--device cpu` for a host without CUDA. `main` returns what
 the command returns: (pipeline, summary) for demo, kitti and stream.
+
+With SVNICP_COORDINATOR ("host:port"), SVNICP_NUM_PROCESSES and
+SVNICP_PROCESS_ID set, every launched process runs the same command line
+and first joins the process group (`parallel/distributed.py`); a config
+whose `sharding` spans that many shards then runs one shard per process.
 """
 
 from __future__ import annotations
@@ -234,6 +239,9 @@ def cmd_record(args):
 
 
 def main(argv=None):
+    from svnicp_tpu_torch.parallel import distributed
+
+    distributed.maybe_initialize_from_env()
     ap = argparse.ArgumentParser(prog="svnicp_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 

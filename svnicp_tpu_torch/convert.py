@@ -7,10 +7,10 @@ be reproduced from JAX's PRNG, so parity runs pass them through
 `init_particles`; the state goes through numpy with these functions.
 
 Fields are keyed by their path in the JAX `OdometryState` pytree, joined
-with dots ("vmap.points", "eskf.nav.r", "rings.count", ...). The JAX
-PRNG key ("rng") and the sharded-map split keys ("split_keys") have no
-counterpart here and are ignored; the port's generator is seeded from
-`seed`.
+with dots ("vmap.points", "eskf.nav.r", "rings.count", "split_keys",
+...). The JAX PRNG key ("rng") has no counterpart here and is ignored;
+the port's generator is seeded from `seed`. A state without "split_keys"
+(the map not sharded) gets an empty [0] set.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from svnicp_tpu_torch.core import imu as imu_mod
 from svnicp_tpu_torch.core import smoother, voxmap
 from svnicp_tpu_torch.runtime.pipeline import OdometryState
 
-_IGNORED = ("rng", "split_keys")
+_IGNORED = ("rng",)
 
 
 def state_from_numpy(fields: dict[str, np.ndarray], device, seed: int = 0
@@ -32,7 +32,7 @@ def state_from_numpy(fields: dict[str, np.ndarray], device, seed: int = 0
     missing = [k for k in _TENSOR_FIELDS + _INT_FIELDS if k not in fields]
     if missing:
         raise KeyError(f"state fields missing: {missing}")
-    unknown = set(fields) - set(_TENSOR_FIELDS + _INT_FIELDS) - {
+    unknown = set(fields) - set(_TENSOR_FIELDS + _INT_FIELDS) - {"split_keys"} - {
         k for k in fields if k.split(".")[0] in _IGNORED}
     if unknown:
         raise KeyError(f"unknown state fields: {sorted(unknown)}")
@@ -53,7 +53,9 @@ def state_from_numpy(fields: dict[str, np.ndarray], device, seed: int = 0
         prev_t=t("prev_t"), pose_time=t("pose_time"), prev_time=t("prev_time"),
         rings=smoother.VarianceRings(t("rings.mean_ring"), t("rings.max_ring"),
                                      int(fields["rings.count"])),
-        rng=rng, frame_idx=int(fields["frame_idx"]))
+        rng=rng, frame_idx=int(fields["frame_idx"]),
+        split_keys=(t("split_keys", torch.int32) if "split_keys" in fields
+                    else torch.zeros((0,), dtype=torch.int32, device=device)))
 
 
 def state_to_numpy(state: OdometryState) -> dict[str, np.ndarray]:
@@ -67,6 +69,7 @@ def state_to_numpy(state: OdometryState) -> dict[str, np.ndarray]:
     out = {k: leaf(k).detach().cpu().numpy() for k in _TENSOR_FIELDS}
     out["rings.count"] = np.asarray(state.rings.count, np.int32)
     out["frame_idx"] = np.asarray(state.frame_idx, np.int32)
+    out["split_keys"] = state.split_keys.detach().cpu().numpy()
     return out
 
 

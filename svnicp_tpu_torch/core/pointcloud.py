@@ -59,6 +59,14 @@ def hash32(x: torch.Tensor) -> torch.Tensor:
     return to_int32(x)
 
 
+def compaction_order(keep: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Permutation putting kept entries first, ordered by hash(key) so a
+    capacity truncation drops a spatially uniform subset; a stable sort, so
+    ties keep their order (the JAX package's `compaction_order`)."""
+    rank = torch.where(keep, hash32(key), torch.full_like(key, INT32_MAX))
+    return torch.argsort(rank, stable=True)
+
+
 class PaddedCloud(NamedTuple):
     points: torch.Tensor   # [N,3]
     valid: torch.Tensor    # [N] bool

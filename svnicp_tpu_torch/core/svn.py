@@ -201,21 +201,29 @@ def xla_moments(cfg: SteinICPConfig, prep: AlignPrep, source, src_valid,
                                            cfg.max_dist)
 
 
-def rbf_kernel(x: torch.Tensor):
+def rbf_kernel(x: torch.Tensor, x_rows: torch.Tensor | None = None):
     """RBF kernel K[i,j] = exp(-|x_i - x_j|^2 / h) with the lower-median
-    bandwidth h -> (K [P,P], h, diff [P,P,6] = x_i - x_j)."""
+    bandwidth h of the full set x -> (K, h, diff = x_i - x_j), [P,P] and
+    [P,P,6]; with `x_rows` [Pl,6] (a particle shard's rows) only those
+    rows, [Pl,P] and [Pl,P,6]."""
     bw = stein.median_bandwidth(x)
-    diff = x[:, None, :] - x[None, :, :]
+    rows = x if x_rows is None else x_rows
+    diff = rows[:, None, :] - x[None, :, :]
     return torch.exp(-(diff * diff).sum(-1) / bw), bw, diff
 
 
-def svgd_precond_grad(x, neg_newton, h_mean, kernel_scale=None) -> torch.Tensor:
+def svgd_precond_grad(x, neg_newton, h_mean, kernel_scale=None,
+                      x_rows=None) -> torch.Tensor:
     """Hessian-preconditioned SVGD transport (ref: SVNICP.cpp:218-227) in
     the JAX package's XLA form: (K (-H^-1 b) + H_mean^-1 grad_k) / rowsum K,
-    on coordinates whitened by `kernel_scale` [6] when it is given."""
+    on coordinates whitened by `kernel_scale` [6] when it is given; with
+    `x_rows` the rows of those particles only (x and neg_newton are then
+    the gathered full set)."""
     if kernel_scale is not None:
         x = x / kernel_scale[None, :]
-    kernel, bw, diff = rbf_kernel(x)
+        if x_rows is not None:
+            x_rows = x_rows / kernel_scale[None, :]
+    kernel, bw, diff = rbf_kernel(x, x_rows)
     grad_k = (2.0 / bw) * torch.einsum("ijd,ij->id", diff, kernel)
     if kernel_scale is not None:
         grad_k = grad_k / kernel_scale[None, :]
@@ -223,12 +231,13 @@ def svgd_precond_grad(x, neg_newton, h_mean, kernel_scale=None) -> torch.Tensor:
     return (kernel @ neg_newton + repulsion) / kernel.sum(1, keepdim=True)
 
 
-def svn_full_update(x, hess, neg_b, lr: float) -> torch.Tensor:
+def svn_full_update(x, hess, neg_b, lr: float, x_rows=None) -> torch.Tensor:
     """Full second-order Stein-Newton update (ref: SVNICP.cpp:229-252):
     lr * H_bar^-1 (K (-b) + sum_j grad_k) / P, H_bar = (sum_j K^2 H_j +
-    grad_k grad_k^T) / P."""
+    grad_k grad_k^T) / P; with `x_rows` the rows of those particles only
+    (x, hess and neg_b the gathered full set)."""
     p = x.shape[0]
-    kernel, bw, diff = rbf_kernel(x)
+    kernel, bw, diff = rbf_kernel(x, x_rows)
     grad_k = (2.0 / bw) * diff * kernel[..., None]                # [P,P,6]
     grad2 = torch.einsum("ijk,ijl->ikl", grad_k, grad_k)
     k2h = torch.einsum("ij,jkl->ikl", kernel * kernel, hess)

@@ -113,6 +113,18 @@ def build_all() -> dict[str, ctypes.CDLL]:
         return _libs
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`. The shards of an in-process mesh run
+    on threads of their own; the mesh's baton lets one run at a time, and
+    the lock keeps the count exact should a caller launch from threads of
+    its own."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def library(src: str) -> ctypes.CDLL:
     """The loaded library built from `csrc/<src>` (building all at first use)."""
     return build_all()[src]

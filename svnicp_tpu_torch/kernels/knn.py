@@ -137,6 +137,18 @@ def gather_candidates(target: torch.Tensor, cand_idx: torch.Tensor,
     return pts, torch.isfinite(cand_d2)
 
 
+def find_candidates(cfg, source_at_guess, target, source_valid, target_valid
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage-1 candidates by index as (rows [B,K], squared distances [B,K]):
+    the exact top-k for "topk", the blocked-cyclic groups otherwise (the
+    JAX package's `find_candidates`, which the mesh's stage 1 runs)."""
+    if cfg.candidate_method == "topk":
+        return knn_candidates(source_at_guess, target, source_valid, target_valid,
+                              cfg.knn_count)
+    return knn_candidates_bucketed(source_at_guess, target, source_valid,
+                                   target_valid, cfg.knn_count)
+
+
 def find_candidate_points(cfg, source_at_guess, target, source_valid,
                           target_valid) -> tuple[torch.Tensor, torch.Tensor]:
     """Stage-1 candidates as points (cand_pts [B,K,3], cand_valid [B,K]):
@@ -148,6 +160,5 @@ def find_candidate_points(cfg, source_at_guess, target, source_valid,
         pts, d2 = nn.bucketed_candidates(source_at_guess, target, source_valid,
                                          target_valid, cfg.knn_count)
         return pts, torch.isfinite(d2)
-    search = knn_candidates if cfg.candidate_method == "topk" else knn_candidates_bucketed
-    idx, d2 = search(source_at_guess, target, source_valid, target_valid, cfg.knn_count)
+    idx, d2 = find_candidates(cfg, source_at_guess, target, source_valid, target_valid)
     return gather_candidates(target, idx, d2)

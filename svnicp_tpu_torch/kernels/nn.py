@@ -77,7 +77,7 @@ def bucketed_candidates(source, target, source_valid, target_valid, k: int
         _build.ptr(target_valid), b, nt, k, blk, group, _build.ptr(prep), _build.ptr(cand),
         _build.ptr(d2), _build.stream_of(source))
     _build.check(err, "stage1 kernel")
-    bucketed_candidates.launches += 1
+    _build.count_launch(bucketed_candidates)
     return cand, d2
 
 
@@ -187,7 +187,7 @@ def plane_moments(params: torch.Tensor, prep: PlanePrep, max_dist: float
         *(_build.ptr(t) for t in (params, *prep)), p, k, b, float(max_dist),
         _build.ptr(partial), _build.ptr(h), _build.ptr(bvec), _build.stream_of(params))
     _build.check(err, "plane_moments kernel")
-    plane_moments.launches += 1
+    _build.count_launch(plane_moments)
     return h, bvec
 
 
@@ -308,7 +308,7 @@ def point_moments(params: torch.Tensor, prep: PointPrep, max_dist: float
         *(_build.ptr(t) for t in (params, *prep)), p, k, b, float(max_dist),
         _build.ptr(partial), _build.ptr(h), _build.ptr(bvec), _build.stream_of(params))
     _build.check(err, "point_moments kernel")
-    point_moments.launches += 1
+    _build.count_launch(point_moments)
     return h, bvec
 
 
@@ -353,7 +353,7 @@ def nn_match(params: torch.Tensor, prep: PointPrep
         _build.ptr(params), _build.ptr(prep.feat13), _build.ptr(prep.cand_t),
         p, k, b, _build.ptr(matched), _build.ptr(best), _build.stream_of(params))
     _build.check(err, "nn_match kernel")
-    nn_match.launches += 1
+    _build.count_launch(nn_match)
     return matched.permute(1, 2, 0), best
 
 

@@ -134,7 +134,7 @@ def stein_update(hess, b, r, t, prior=None, *, max_dist: float):
         _build.ptr(r_new), _build.ptr(t_new), _build.ptr(stats),
         _build.stream_of(hess))
     _build.check(err, "stein kernel")
-    stein_update.launches += 1
+    _build.count_launch(stein_update)
     return r_new, t_new, stats[0], stats[1]
 
 

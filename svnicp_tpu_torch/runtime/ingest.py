@@ -186,6 +186,7 @@ class IngestDriver:
             "preprocessing_time": pre_dt,
             "steinicp_time": self.timer.last.get("dispatch", 0.0),
         })
+        self._maybe_rebalance()
         return out
 
     def run_threaded(self, scan_stream, ring_slots: int = 16) -> int:

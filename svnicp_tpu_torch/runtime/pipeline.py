@@ -19,6 +19,15 @@ returns its particle stack per iteration; contain failures; push the
 variance rings; compose the pose (ICP) or fuse the ensemble mean and
 covariance into the ESKF (KF); insert the scan into the map.
 
+With a device mesh (`cfg.sharding`, `parallel/`) the registration runs
+mesh-parallel, as the JAX step does: with `map.sharded` the map lives in
+key-range blocks over the point axis, candidates come from a ring over the
+blocks and inserts go to the owning block
+(`parallel/voxmap_sharded.py`); otherwise the map stays whole and each
+point shard searches the local map by index (`parallel/sharding.py`). The
+mesh branch comes before the SVGD, SVD and voxel-candidate branches, so a
+mesh runs the sharded SVN math whatever `icp.method` says.
+
 The state is a NamedTuple of tensors plus a few host values (frame index,
 ring fill count, the particle generator); steps return a new state and
 leave the old one intact except for the generator, which advances. Where
@@ -69,6 +78,8 @@ class OdometryState(NamedTuple):
     rings: smoother.VarianceRings
     rng: torch.Generator       # per-frame particle draws
     frame_idx: int
+    split_keys: torch.Tensor   # [S-1] int32 map-block key boundaries with
+                               # map.sharded over S point shards, else [0]
 
 
 class FrameOutput(NamedTuple):
@@ -101,23 +112,27 @@ class FrameOutput(NamedTuple):
     feature_counts: torch.Tensor | None = None
 
 
-def check_supported(cfg: PipelineConfig) -> None:
-    """The pipeline options this port implements so far; others raise."""
-    unsupported = {
-        "map.sharded": cfg.map.sharded,
-        "sharding": cfg.sharding.particle_axis * cfg.sharding.point_axis > 1,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"svnicp_tpu_torch does not port {bad} yet")
-
-
 def _dtype(cfg: PipelineConfig) -> torch.dtype:
     return {"float32": torch.float32, "float64": torch.float64}[cfg.dtype]
 
 
+def _map_shards(cfg: PipelineConfig) -> int:
+    return cfg.sharding.point_axis if cfg.map.sharded else 1
+
+
 def init_state(cfg: PipelineConfig, device) -> OdometryState:
     dtype = _dtype(cfg)
+    s = _map_shards(cfg)
+    if s > 1:
+        from svnicp_tpu_torch.parallel import voxmap_sharded as vms
+
+        if cfg.map.capacity % s:
+            raise ValueError(
+                f"map.capacity ({cfg.map.capacity}) must divide evenly over "
+                f"{s} point shards for map.sharded")
+        split_keys = vms.uniform_split_keys(s, device)
+    else:
+        split_keys = torch.zeros((0,), dtype=torch.int32, device=device)
     eye = torch.eye(3, dtype=dtype, device=device)
     zero3 = torch.zeros(3, dtype=dtype, device=device)
     zero = torch.zeros((), dtype=dtype, device=device)
@@ -129,7 +144,7 @@ def init_state(cfg: PipelineConfig, device) -> OdometryState:
         pose_r=eye, pose_t=zero3, prev_r=eye.clone(), prev_t=zero3.clone(),
         pose_time=zero, prev_time=zero.clone(),
         rings=smoother.create(dtype=dtype, device=device),
-        rng=rng, frame_idx=0)
+        rng=rng, frame_idx=0, split_keys=split_keys)
 
 
 def _imu_scan_predict(ekf: eskf_mod.ESKFState, imu: ImuWindow | None, noise,
@@ -268,15 +283,24 @@ def _zeros_output(cfg, state, guess_r, guess_t, map_points, map_dropped,
                              p, 6), **kw))
 
 
-def _insert(cfg: PipelineConfig, vmap, cloud, pose_r, pose_t):
+def _insert(cfg: PipelineConfig, state: OdometryState, cloud, pose_r, pose_t,
+            mesh=None):
+    """The map insert: the ordinary one, or with a mesh and map.sharded the
+    key-range block insert (`voxmap_sharded.sharded_insert`)."""
     m = cfg.map
-    return voxmap.insert(vmap, cloud, pose_r, pose_t, m.voxel_size,
+    if mesh is not None and m.sharded:
+        from svnicp_tpu_torch.parallel import voxmap_sharded as vms
+
+        return vms.sharded_insert(mesh, state.vmap, cloud, pose_r, pose_t,
+                                  m.voxel_size, m.max_points_per_voxel,
+                                  m.max_range, split_keys=state.split_keys)
+    return voxmap.insert(state.vmap, cloud, pose_r, pose_t, m.voxel_size,
                          m.max_points_per_voxel, m.max_range)
 
 
 def bootstrap(cfg: PipelineConfig, state: OdometryState, points, valid,
               time: torch.Tensor, imu: ImuWindow | None = None,
-              timestamps=None):
+              timestamps=None, mesh=None):
     """First frame: crop the raw (or segmented) scan and seed the map at the
     predicted pose, no alignment and no IMU predict: the frame's window is
     consumed unused (ref: OdometryPipeline.cpp:583-591). Deskew is the
@@ -286,7 +310,7 @@ def bootstrap(cfg: PipelineConfig, state: OdometryState, points, valid,
         points, valid, _ = _segment(cfg, points, valid, timestamps)
     cropped = pc.crop(pc.PaddedCloud(points, valid), pp.min_range, pp.max_range)
     guess_r, guess_t = _predict_pose(cfg, state, time)
-    new_map, dropped = _insert(cfg, state.vmap, cropped, guess_r, guess_t)
+    new_map, dropped = _insert(cfg, state, cropped, guess_r, guess_t, mesh)
     state = state._replace(
         vmap=new_map, prev_r=state.pose_r, prev_t=state.pose_t,
         prev_time=state.pose_time, pose_r=guess_r, pose_t=guess_t,
@@ -379,13 +403,27 @@ def draw_particles(cfg: PipelineConfig, state: OdometryState) -> torch.Tensor:
 
 
 def _register(cfg: PipelineConfig, state: OdometryState, source, guess_r,
-              guess_t, init_particles):
+              guess_t, init_particles, mesh=None):
     """The frame's registration by the configured method and candidate
-    method -> (AlignResult, target overflow, particle history or None)."""
+    method, or mesh-parallel -> (AlignResult, target overflow, particle
+    history or None)."""
     icp = cfg.icp
     hist_on = cfg.save_particles     # the config allows it for SVN only
     args = (source.points, source.valid)
-    if icp.candidate_method == "voxel" and icp.method == "svn":
+    if mesh is not None and cfg.map.sharded:
+        # the map in key-range blocks: ring-gathered candidates, the
+        # mesh-parallel align; no radius query
+        from svnicp_tpu_torch.parallel import voxmap_sharded as vms
+        from svnicp_tpu_torch.parallel.mesh import POINT_AXIS
+
+        if mesh.shape[POINT_AXIS] != cfg.sharding.point_axis:
+            raise ValueError(
+                f"map.sharded needs mesh point axis == cfg.sharding.point_axis "
+                f"({cfg.sharding.point_axis}), got {mesh.shape[POINT_AXIS]}")
+        out = vms.sharded_register_with_map(mesh, icp, *args, state.vmap, guess_r,
+                                            guess_t, init_particles, history=hist_on)
+        overflow = torch.zeros((), dtype=torch.int64, device=guess_t.device)
+    elif icp.candidate_method == "voxel" and icp.method == "svn" and mesh is None:
         # candidates from the map's voxels around each point: no radius
         # query, no brute-force stage 1
         src_world = geo.transform_points(guess_r, guess_t, source.points)
@@ -401,7 +439,11 @@ def _register(cfg: PipelineConfig, state: OdometryState, source, guess_r,
             state.vmap, guess_t, cfg.preprocess.max_range + 10.0,
             icp.target_capacity)
         args += (target.points, target.valid, guess_r, guess_t, init_particles)
-        if icp.method == "svgd":
+        if mesh is not None:
+            from svnicp_tpu_torch.parallel import sharding
+
+            out = sharding.sharded_register(mesh, icp, *args, history=hist_on)
+        elif icp.method == "svgd":
             out = svgd.register(icp, *args, generator=state.rng)
         elif icp.method == "svd":
             out = icp_svd.register(icp, *args)
@@ -415,11 +457,14 @@ def _register(cfg: PipelineConfig, state: OdometryState, source, guess_r,
 
 def odometry_step(cfg: PipelineConfig, state: OdometryState, to_map, source,
                   time: torch.Tensor, init_particles=None,
-                  skip_insert: bool = False, imu: ImuWindow | None = None):
+                  skip_insert: bool = False, imu: ImuWindow | None = None,
+                  mesh=None):
     """One frame from its preprocessed clouds -> (new state, FrameOutput).
     `init_particles` [P,6] replaces the frame's own particle draw (parity
     tests feed the JAX package's draws here); `imu` is the frame's IMU
-    window, which KF mode propagates the filter over first."""
+    window, which KF mode propagates the filter over first; `mesh` (a
+    `parallel` mesh) runs the registration, and with map.sharded the
+    insert, mesh-parallel."""
     icp = cfg.icp
     dtype, device = state.pose_t.dtype, state.pose_t.device
     kf = cfg.lio.estimator == "kf"
@@ -434,7 +479,7 @@ def odometry_step(cfg: PipelineConfig, state: OdometryState, to_map, source,
                                          device=device)
 
     result, overflow, history = _register(cfg, state, source, guess_r, guess_t,
-                                          init_particles)
+                                          init_particles, mesh)
 
     raw_var = result.var
     scaled_var = raw_var * torch.tensor(cfg.lio.icp_cov_scales, dtype=dtype,
@@ -471,7 +516,7 @@ def odometry_step(cfg: PipelineConfig, state: OdometryState, to_map, source,
     do_insert = (align_ok and not skip_insert
                  and state.frame_idx % cfg.map.insert_every == 0)
     if do_insert:
-        new_map, dropped = _insert(cfg, state.vmap, to_map, pose_r, pose_t)
+        new_map, dropped = _insert(cfg, state, to_map, pose_r, pose_t, mesh)
     else:
         new_map = state.vmap
         dropped = torch.zeros((), dtype=torch.int64, device=device)
@@ -480,7 +525,7 @@ def odometry_step(cfg: PipelineConfig, state: OdometryState, to_map, source,
         vmap=new_map, eskf=ekf, pose_r=pose_r, pose_t=pose_t,
         prev_r=state.pose_r, prev_t=state.pose_t, pose_time=time,
         prev_time=state.pose_time, rings=rings, rng=state.rng,
-        frame_idx=state.frame_idx + 1)
+        frame_idx=state.frame_idx + 1, split_keys=state.split_keys)
     out = FrameOutput(
         pose_r=pose_r, pose_t=pose_t, guess_r=guess_r, guess_t=guess_t,
         velocity=ekf.nav.v, particles=result.particles,
@@ -505,7 +550,8 @@ def dequantize(buf: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def odometry_step_pre(cfg: PipelineConfig, state: OdometryState, ds_buf,
                       n_map: int, time: torch.Tensor, init_particles=None,
-                      skip_insert: bool = False, imu: ImuWindow | None = None):
+                      skip_insert: bool = False, imu: ImuWindow | None = None,
+                      mesh=None):
     """One frame from a host-preprocessed cloud (the JAX package's
     `odometry_step_packed_pre`): ds_buf [2*source_capacity,3] holds the
     stage-A rows (int16 with quantize_upload); the stage-B source is
@@ -525,7 +571,7 @@ def odometry_step_pre(cfg: PipelineConfig, state: OdometryState, ds_buf,
     source = pc.downsample_uniform(to_map, 1.5 * cfg.preprocess.voxel_size,
                                    cfg.icp.source_capacity)
     return odometry_step(cfg, state, to_map, source, time, init_particles,
-                         skip_insert, imu)
+                         skip_insert, imu, mesh)
 
 
 def raw_rows(buf: torch.Tensor, n: int, dtype: torch.dtype):
@@ -539,13 +585,13 @@ def raw_rows(buf: torch.Tensor, n: int, dtype: torch.dtype):
 def odometry_step_raw(cfg: PipelineConfig, state: OdometryState, points,
                       valid, time, init_particles=None,
                       skip_insert: bool = False, imu: ImuWindow | None = None,
-                      timestamps=None):
+                      timestamps=None, mesh=None):
     """One frame from the raw padded scan (cropped on the host, or with
     per-point `timestamps` uncropped): preprocess on the device, then
     step."""
     _, to_map, source, sel = _preprocess(cfg, state, points, valid, timestamps)
     state, out = odometry_step(cfg, state, to_map, source, time,
-                               init_particles, skip_insert, imu)
+                               init_particles, skip_insert, imu, mesh)
     if sel is not None:
         out = out._replace(feature_counts=torch.stack(
             [sel.n_edge, sel.n_planar, sel.n_ground]))
@@ -588,7 +634,7 @@ def _run_staged(state, frames, step_one):
 
 
 def odometry_steps_packed(cfg: PipelineConfig, state: OdometryState,
-                          frames: list[StagedFrame]):
+                          frames: list[StagedFrame], mesh=None):
     """A batch of raw-staged frames (the JAX package's
     `odometry_steps_packed`) -> (state, PackedFrameOutput with a leading
     F axis): one upload of the F frames' rows, then `odometry_step_raw` on
@@ -601,19 +647,19 @@ def odometry_steps_packed(cfg: PipelineConfig, state: OdometryState,
     def one(st, buf, f, time):
         pts, valid, ts = raw_rows(buf, f.n, dtype)
         return odometry_step_raw(cfg, st, pts, valid, time, f.init_particles,
-                                 f.skip_insert, f.imu, ts)
+                                 f.skip_insert, f.imu, ts, mesh)
 
     return _run_staged(state, frames, one)
 
 
 def odometry_steps_packed_pre(cfg: PipelineConfig, state: OdometryState,
-                              frames: list[StagedFrame]):
+                              frames: list[StagedFrame], mesh=None):
     """`odometry_steps_packed` for host-preprocessed frames (the JAX
     package's `odometry_steps_packed_pre`): `odometry_step_pre` on each."""
 
     def one(st, buf, f, time):
         return odometry_step_pre(cfg, st, buf, f.n, time, f.init_particles,
-                                 f.skip_insert, f.imu)
+                                 f.skip_insert, f.imu, mesh)
 
     return _run_staged(state, frames, one)
 
@@ -631,13 +677,24 @@ class LIOPipeline(IngestDriver, PoseGraphDriver):
     dispatch and outputs lag by one frame. With `dispatch_batch` F > 1 (and
     no pose graph, which forces 1) frames after the bootstrap are staged
     and dispatched F at a time (`odometry_steps_packed*`), their outputs
-    `HostFrameOutput`s. Call `flush()` (or `close()`) to drain either."""
+    `HostFrameOutput`s. Call `flush()` (or `close()`) to drain either.
 
-    def __init__(self, cfg: PipelineConfig, device=None, imu_window: int = 256):
-        check_supported(cfg)
+    With `cfg.sharding` over more than one shard the frames register on a
+    ("particle", "point") mesh (`parallel/`), built over the visible devices
+    of the pipeline's type (one shard per rank after
+    `distributed.initialize`), or the prebuilt `mesh` given, whose shape
+    must be cfg.sharding's (`sharding.make_mesh(p, q, devices=["cpu"] * n)`
+    puts n shards on one device). With map.sharded the map rebalances after
+    the bootstrap and every map.rebalance_every frames."""
+
+    def __init__(self, cfg: PipelineConfig, device=None, imu_window: int = 256,
+                 mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.imu_window = imu_window
+        self.mesh = self._make_mesh(mesh)
+        self.rebalances = 0
+        self.rebalance_drops = 0
         self.state = init_state(cfg, self.device)
         self._imu_times: list[float] = []
         self._imu_samples: list = []
@@ -671,6 +728,60 @@ class LIOPipeline(IngestDriver, PoseGraphDriver):
                 loop_min_separation=pg.loop_min_separation,
                 cov_floor=pg.cov_floor, huber_delta=pg.huber_delta,
                 device=self.device, host_dtype=_dtype(cfg))
+
+    def _make_mesh(self, mesh):
+        """The registration mesh of cfg.sharding (None for one shard), with
+        the JAX package's divisibility checks."""
+        from svnicp_tpu_torch.parallel import sharding
+        from svnicp_tpu_torch.parallel.mesh import PARTICLE_AXIS, POINT_AXIS
+
+        cfg, sh = self.cfg, self.cfg.sharding
+        if sh.particle_axis * sh.point_axis == 1:
+            if cfg.map.sharded:
+                raise ValueError("map.sharded needs a device mesh: set "
+                                 "sharding.point_axis (and optionally "
+                                 "particle_axis) > 1")
+            if mesh is not None:
+                raise ValueError("a mesh was given but cfg.sharding has one shard")
+            return None
+        if cfg.icp.particle_count % sh.particle_axis:
+            raise ValueError(f"particle_count ({cfg.icp.particle_count}) must "
+                             f"divide over {sh.particle_axis} particle shards")
+        if cfg.icp.source_capacity % sh.point_axis:
+            raise ValueError(f"source_capacity ({cfg.icp.source_capacity}) must "
+                             f"divide over {sh.point_axis} point shards")
+        if mesh is None:
+            return sharding.make_mesh(sh.particle_axis, sh.point_axis,
+                                      kind=self.device.type)
+        if (mesh.shape[PARTICLE_AXIS], mesh.shape[POINT_AXIS]) != (
+                sh.particle_axis, sh.point_axis):
+            raise ValueError(f"the mesh's shape {mesh.shape} is not cfg.sharding's "
+                             f"({sh.particle_axis}, {sh.point_axis})")
+        kinds = {d.type for d in getattr(mesh, "devices", [mesh.device])}
+        if kinds != {self.device.type}:
+            raise ValueError(f"the mesh's shards lie on {sorted(kinds)}, the "
+                             f"pipeline on {self.device.type}")
+        return mesh
+
+    def _maybe_rebalance(self, force: bool = False) -> None:
+        """The sharded map's occupancy rebalance every map.rebalance_every
+        frames (a pass that changes nothing below the imbalance threshold,
+        `voxmap_sharded.rebalance`); `force` skips the cadence: the one
+        after the bootstrap must run, since the uniform initial split puts
+        a real scene in one block."""
+        if self.mesh is None or not self.cfg.map.sharded:
+            return
+        k = self.cfg.map.rebalance_every
+        if not force and (k <= 0 or len(self.outputs) % k):
+            return
+        from svnicp_tpu_torch.parallel import voxmap_sharded as vms
+
+        new_map, new_splits, dropped = vms.rebalance(
+            self.mesh, self.state.vmap, self.state.split_keys,
+            sample_per_shard=self.cfg.map.rebalance_sample)
+        self.state = self.state._replace(vmap=new_map, split_keys=new_splits)
+        self.rebalance_drops += int(dropped)
+        self.rebalances += 1
 
     def _time(self, t: float) -> torch.Tensor:
         return torch.tensor(t, dtype=_dtype(self.cfg), device=self.device)
@@ -709,8 +820,9 @@ class LIOPipeline(IngestDriver, PoseGraphDriver):
             with self.timer.span("dispatch"):
                 pts, valid, ts = self._upload(rows, n)
                 self.state, out = bootstrap(self.cfg, self.state, pts, valid,
-                                            self._time(t), imu, ts)
+                                            self._time(t), imu, ts, self.mesh)
             self._record_frame(t, out, points)
+            self._maybe_rebalance(force=True)
             return out
         batch_n = self.cfg.dispatch_batch if self.posegraph is None else 1
         if host_ds and batch_n == 1 and self.cfg.stage_ahead and self.posegraph is None:
@@ -730,7 +842,8 @@ class LIOPipeline(IngestDriver, PoseGraphDriver):
                 pts, valid, ts = self._upload(rows, n)
                 self.state, out = odometry_step_raw(
                     self.cfg, self.state, pts, valid, self._time(t),
-                    init_particles, self._skip_insert(self._frames), imu, ts)
+                    init_particles, self._skip_insert(self._frames), imu, ts,
+                    self.mesh)
         self._record_frame(t, out, points)
         return out
 
@@ -765,7 +878,7 @@ class LIOPipeline(IngestDriver, PoseGraphDriver):
         steps = (odometry_steps_packed_pre if self._batch_kind[0] == "pre"
                  else odometry_steps_packed)
         with self.timer.span("dispatch"):
-            self.state, packed = steps(self.cfg, self.state, items)
+            self.state, packed = steps(self.cfg, self.state, items, self.mesh)
         per_frame = self.timer.last.get("dispatch", 0.0) / len(items)
         outs = packing.host_outputs(packed)
         for f, out in zip(items, outs):
@@ -779,12 +892,13 @@ class LIOPipeline(IngestDriver, PoseGraphDriver):
         with self.timer.span("dispatch"):
             self.state, out = odometry_step_pre(
                 self.cfg, self.state, ds_buf, n_map, self._time(t),
-                init_particles, self._skip_insert(frame_idx), imu)
+                init_particles, self._skip_insert(frame_idx), imu, self.mesh)
         return out
 
     def _record_frame(self, t: float, out: FrameOutput, points) -> None:
-        """Keep the frame's output and stamps; with the pose graph, update
-        it from the frame's pose and the scan as it was fed."""
+        """Keep the frame's output and stamps, rebalance the sharded map on
+        its cadence; with the pose graph, update it from the frame's pose
+        and the scan as it was fed."""
         self._frames += 1
         self._last_frame_time = t
         self.outputs.append(out)
@@ -793,6 +907,7 @@ class LIOPipeline(IngestDriver, PoseGraphDriver):
             "preprocessing_time": self.timer.last.get("preprocess", 0.0),
             "steinicp_time": self.timer.last.get("dispatch", 0.0),
         })
+        self._maybe_rebalance()
         if self.posegraph is not None:
             self._update_posegraph(t, out, points)
 

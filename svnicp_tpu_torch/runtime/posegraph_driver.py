@@ -9,8 +9,8 @@ verify a loop candidate; after a closure the graph is optimized, and with
 persistent state (poses, the ESKF's nav state, the voxel map). The rails of
 the JAX package are kept: a non-finite or oversized correction is
 rejected, the graph then rolls back, and the loop edges that drove it are
-pruned. The sharded map's distributed move is not ported (`map.sharded`
-is refused by `pipeline.check_supported`).
+pruned. With the map in key-range blocks over a mesh (map.sharded) the
+map moves distributed (`voxmap_sharded.sharded_reanchor`).
 """
 
 from __future__ import annotations
@@ -24,14 +24,15 @@ from svnicp_tpu_torch.config import PipelineConfig
 
 
 def _reanchor_state(cfg: PipelineConfig, state, delta_r: torch.Tensor,
-                    delta_t: torch.Tensor):
+                    delta_t: torch.Tensor, move_map: bool = True):
     """The odometry state moved rigidly by a world-frame correction: the
     pose history, the ESKF nav state (the velocity rotated; the covariance
-    untouched, as every error state of this filter is body-frame) and the
-    voxel map, its keys recomputed (`pointcloud.voxel_key`) and the table
-    stable-sorted by key, carrying x, y and z, as `lax.sort(num_keys=1,
-    is_stable=True)` does, so the rows keep the order the map's run
-    broadcasts rely on."""
+    untouched, as every error state of this filter is body-frame) and,
+    unless `move_map` is False (the sharded map moves by its own
+    collectives), the voxel map, its keys recomputed
+    (`pointcloud.voxel_key`) and the table stable-sorted by key, carrying
+    x, y and z, as `lax.sort(num_keys=1, is_stable=True)` does, so the rows
+    keep the order the map's run broadcasts rely on."""
     from svnicp_tpu_torch.core import imu as imu_mod
     from svnicp_tpu_torch.core import voxmap
     from svnicp_tpu_torch.core.pointcloud import INVALID_KEY, voxel_key
@@ -48,6 +49,10 @@ def _reanchor_state(cfg: PipelineConfig, state, delta_r: torch.Tensor,
     nav = state.eskf.nav
     nav_r, nav_t = move(nav.r, nav.t)
     ekf = state.eskf._replace(nav=imu_mod.NavState(nav_r, nav_t, dr @ nav.v))
+    state = state._replace(pose_r=pose_r, pose_t=pose_t, prev_r=prev_r,
+                           prev_t=prev_t, eskf=ekf)
+    if not move_map:
+        return state
     vm = state.vmap
     pts = vm.points @ dr.T + dt[None, :]
     key = torch.where(vm.valid, voxel_key(pts, cfg.map.voxel_size),
@@ -55,15 +60,15 @@ def _reanchor_state(cfg: PipelineConfig, state, delta_r: torch.Tensor,
     skey, order = torch.sort(key, stable=True)
     valid = skey != INVALID_KEY
     new_map = voxmap.VoxelMap(torch.where(valid[:, None], pts[order], 0.0), skey, valid)
-    return state._replace(pose_r=pose_r, pose_t=pose_t, prev_r=prev_r, prev_t=prev_t,
-                          eskf=ekf, vmap=new_map)
+    return state._replace(vmap=new_map)
 
 
 class PoseGraphDriver:
     """Mixin for LIOPipeline: keyframe selection, loop-candidate search and
     verification, live re-anchoring. Expects the attributes LIOPipeline's
     constructor sets (posegraph, _keyframe_clouds, loop_closures,
-    reanchors, reanchors_rejected, loop_edges_pruned, state, cfg)."""
+    reanchors, reanchors_rejected, reanchor_drops, loop_edges_pruned, mesh,
+    state, cfg)."""
 
     _KF_CLOUD_SIZE = 2048
 
@@ -133,7 +138,10 @@ class PoseGraphDriver:
         correction that is non-finite, translates by more than
         `posegraph.max_reanchor_correction` or rotates by more than 1 rad
         is rejected and counted, not applied: a lost run's spurious loops
-        must not destroy the state that could still recover."""
+        must not destroy the state that could still recover. The sharded
+        map moves distributed (per-block re-key and the rebalance ring
+        pass; the boundaries stay); rows shed on a block's overflow are
+        counted in `reanchor_drops`, which the replicated move never has."""
         bound = self.cfg.posegraph.max_reanchor_correction
         dr_np, dt_np = np.asarray(delta_r), np.asarray(delta_t)
         cos_a = np.clip((np.trace(dr_np) - 1.0) / 2.0, -1.0, 1.0)
@@ -143,10 +151,25 @@ class PoseGraphDriver:
             self.reanchors_rejected += 1
             return
         dtype = self.state.pose_t.dtype
-        self.state = _reanchor_state(
-            self.cfg, self.state,
-            torch.tensor(dr_np, dtype=dtype, device=self.device),
-            torch.tensor(dt_np, dtype=dtype, device=self.device))
+        dr = torch.tensor(dr_np, dtype=dtype, device=self.device)
+        dt = torch.tensor(dt_np, dtype=dtype, device=self.device)
+        sharded_map = self.mesh is not None and self.cfg.map.sharded
+        self.state = _reanchor_state(self.cfg, self.state, dr, dt,
+                                     move_map=not sharded_map)
+        if sharded_map:
+            import sys
+
+            from svnicp_tpu_torch.parallel import voxmap_sharded as vms
+
+            new_map, dropped = vms.sharded_reanchor(
+                self.mesh, self.state.vmap, self.state.split_keys, dr, dt,
+                self.cfg.map.voxel_size)
+            self.state = self.state._replace(vmap=new_map)
+            if int(dropped):
+                print(f"[svnicp] WARNING: sharded reanchor dropped {int(dropped)} "
+                      f"map rows on shard-capacity overflow (parity loss vs the "
+                      f"replicated move)", file=sys.stderr)
+            self.reanchor_drops += int(dropped)
         self.reanchors += 1
 
     def _verify_loop(self, old: int, cur: int):

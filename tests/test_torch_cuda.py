@@ -679,3 +679,78 @@ def test_host_frame_output_on_the_card_equals_frame_output(dev):
     assert int(host.map_points) == int(out.map_points)
     assert host.particles is out.particles
     assert packing.copies["readback"] == before + 1
+
+
+@pytest.mark.parametrize("path,kernel", [("tpu_plane.yaml", "B2"), ("geode_alpha.yaml", "B4")])
+def test_moments_at_the_mesh_shard_shapes(dev, path, kernel):
+    """B2 and B4 as each shard of the (2, 4) mesh runs them (P=32 of 64 and
+    P=5 of 10 particles, 1,024 of 4,096 rows, K=32 and 104), on the
+    shard's own operands (`chip_smoke.mesh_shard_moments_inputs`): held to
+    the plain version run in float64 as `chip_smoke.check_moments` holds
+    every path's operands, repeats bit-identical."""
+    import pathlib
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import chip_smoke
+    from svnicp_tpu_torch import config as cfg_mod
+
+    cfg = cfg_mod.from_yaml(str(root / "configs" / path))
+    seq = (chip_smoke.bench_sequence(3) if kernel == "B2"
+           else chip_smoke.geode_sequence(3))
+    src, sv, tgt, tv = chip_smoke.stage1_inputs(cfg, seq[3], dev)
+    params, prep = chip_smoke.mesh_shard_moments_inputs(
+        cfg.icp, src, sv, tgt, tv, dev, cfg.icp.source_capacity // 4,
+        cfg.icp.particle_count // 2)
+    assert params.shape[0] == cfg.icp.particle_count // 2
+    assert prep.feat13.shape[2] == 1024
+    assert isinstance(prep, nn.PlanePrep if kernel == "B2" else nn.PointPrep)
+    chip_smoke.check_moments(f"mesh shard {path}", params, prep, cfg.icp.max_dist, [])
+
+
+def test_in_process_mesh_on_the_card_equals_the_cpu(dev):
+    """The (2, 4) mesh with its 8 shards on cuda:0 against the same mesh on
+    the CPU, float64: the sharded registration to 1e-9 (rounding of the
+    card's products), the sharded map's insert and rebalance exactly."""
+    from svnicp_tpu_torch.config import SteinICPConfig
+    from svnicp_tpu_torch.core import pointcloud as pc
+    from svnicp_tpu_torch.core import voxmap
+    from svnicp_tpu_torch.io import datasets
+    from svnicp_tpu_torch.parallel import sharding
+    from svnicp_tpu_torch.parallel import voxmap_sharded as vms
+
+    world = datasets.SyntheticWorld(extent=30.0, seed=1)
+    _, rots, trans = datasets.synthetic_trajectory(2, dt=0.5, speed=2.0, seed=1)
+    rng = np.random.default_rng(1)
+    scans = [world.scan_at(rng, rots[i], trans[i], n_points=2500).astype(np.float64)
+             for i in range(2)]
+    cfg = SteinICPConfig(particle_count=8, iterations=12, lr=1.0, max_dist=2.8,
+                         knn_count=16, early_stop=False)
+    lb, ub = np.array(cfg.init_lb), np.array(cfg.init_ub)
+    init = lb + (ub - lb) * np.random.default_rng(2).random((8, 6))
+    src = scans[1][::4][:512]
+    results = {}
+    for where in ("cpu", dev):
+        mesh = sharding.make_mesh(2, 4, devices=[where] * 8)
+
+        def t(a, dtype=torch.float64):
+            return torch.as_tensor(np.asarray(a)).to(device=where, dtype=dtype)
+
+        res = sharding.sharded_register(
+            mesh, cfg, t(src), t(np.ones(len(src)), torch.bool), t(scans[0]),
+            t(np.ones(len(scans[0])), torch.bool), t(rots[1]), t(trans[1]), t(init))
+        vmap = voxmap.create(4096, torch.float64, where)
+        vmap, dropped = vms.sharded_insert(
+            mesh, vmap, pc.PaddedCloud(t(scans[0]), t(np.ones(2500), torch.bool)),
+            t(rots[0]), t(trans[0]), 1.0, 5, 100.0,
+            split_keys=vms.uniform_split_keys(4, where))
+        vmap, splits, shed = vms.rebalance(mesh, vmap, vms.uniform_split_keys(4, where),
+                                           sample_per_shard=64)
+        results[str(where)] = (res, vmap, splits, int(dropped), int(shed))
+    (r_c, m_c, s_c, d_c, e_c), (r_g, m_g, s_g, d_g, e_g) = results.values()
+    np.testing.assert_allclose(r_g.mean.cpu().numpy(), r_c.mean.numpy(), atol=1e-9)
+    np.testing.assert_allclose(r_g.particles.cpu().numpy(), r_c.particles.numpy(), atol=1e-9)
+    assert int(r_g.iterations) == int(r_c.iterations) == 12
+    assert torch.equal(m_g.key.cpu(), m_c.key) and torch.equal(m_g.valid.cpu(), m_c.valid)
+    assert torch.equal(s_g.cpu(), s_c) and (d_g, e_g) == (d_c, e_c)

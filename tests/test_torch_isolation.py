@@ -177,15 +177,23 @@ def test_xla_path_options_raise(option):
 
 
 def test_remaining_refusals_are_named():
-    """The pipeline refuses only what ROADMAP A12 still has to port (the
-    sharded map and the device mesh); the pose graph (A11) and batched
-    dispatch (A11b) are ported."""
+    """The pipeline refuses nothing any more: ROADMAP A12 lifted the last
+    two refusals (the sharded map and the device mesh) and
+    `check_supported` is gone. Both construct on the CPU with a mesh of
+    shards on one device, beside the pose graph (A11) and batched dispatch
+    (A11b)."""
+    from svnicp_tpu_torch.parallel import sharding
+
+    assert not hasattr(pl, "check_supported")
     cfg = cfg_mod.from_yaml(str(ROOT / "configs" / "tpu_plane.yaml"))
-    for change, name in ((dict(map=dataclasses.replace(cfg.map, sharded=True)), "map.sharded"),
-                         (dict(sharding=dataclasses.replace(cfg.sharding, point_axis=2)),
-                          "sharding")):
-        with pytest.raises(NotImplementedError, match=name):
-            pl.LIOPipeline(dataclasses.replace(cfg, **change), device="cpu")
+    mesh_cfg = dataclasses.replace(cfg, sharding=dataclasses.replace(
+        cfg.sharding, point_axis=2))
+    for change in ({}, dict(map=dataclasses.replace(cfg.map, sharded=True))):
+        pipe = pl.LIOPipeline(dataclasses.replace(mesh_cfg, **change), device="cpu",
+                              mesh=sharding.make_mesh(1, 2, devices=["cpu"] * 2))
+        assert pipe.mesh.shape == {"particle": 1, "point": 2}
+        assert tuple(pipe.state.split_keys.shape) == ((1,) if change else (0,))
+        pipe.close()
     pipe = pl.LIOPipeline(dataclasses.replace(cfg, posegraph=dataclasses.replace(
         cfg.posegraph, enabled=True)), device="cpu")
     assert pipe.posegraph is not None
