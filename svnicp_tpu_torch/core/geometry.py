@@ -115,8 +115,12 @@ def matrix_to_euler_zyx(R: torch.Tensor) -> torch.Tensor:
     return torch.stack([roll, pitch, yaw], dim=-1)
 
 
-# the JAX package's vmapped alias; matrix_to_euler_zyx batches already
+# the JAX package's vmapped aliases; these functions batch already
 bmatrix_to_euler = matrix_to_euler_zyx
+bso3_exp = so3_exp
+bso3_log = so3_log
+bso3_left_jacobian = so3_left_jacobian
+beuler_to_matrix = euler_zyx_to_matrix
 
 
 def euler_zyx_partials(roll: torch.Tensor, pitch: torch.Tensor,

@@ -130,8 +130,7 @@ def cholesky_solve6(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched SPD 6x6 solve, unrolled, with the JAX package's pivot floor
     max(s, 1e-12 (1 + |a_jj|)) that keeps rank-deficient input finite; on
     well-conditioned input the floor never engages. h [...,6,6] and b [...,6]
-    broadcast against each other. (The JAX package's `solve_newton` and
-    `ensemble_solve` are this solve.)"""
+    broadcast against each other."""
     a = [[h[..., i, j] for j in range(6)] for i in range(6)]
     lo = [[None] * 6 for _ in range(6)]
     linv = [None] * 6
@@ -161,3 +160,31 @@ def cholesky_solve6(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         x[i] = s * linv[i]
     return torch.stack(torch.broadcast_tensors(*x), dim=-1)
 
+
+# The JAX package's single-particle names: its ensemble forms vmap these,
+# where the port's ensemble forms are batched themselves.
+def gauss_newton_system(source, transformed, target, pair_valid, point_valid,
+                        r_total, max_dist: float):
+    """One particle's point-to-point (H [6,6], b [6]): transformed and
+    target [B,3], pair_valid [B], r_total [3,3]."""
+    h, b = ensemble_gauss_newton(source, transformed[None], target[None],
+                                 pair_valid[None], point_valid, r_total[None], max_dist)
+    return h[0], b[0]
+
+
+def gauss_newton_system_plane(source, transformed, target, normals, pair_valid,
+                              r_total, max_dist: float):
+    """One particle's point-to-plane (H [6,6], b [6]): transformed and
+    target [B,3], pair_valid [B], r_total [3,3]."""
+    h, b = ensemble_gauss_newton_plane(source, transformed[None], target[None], normals,
+                                       pair_valid[None], r_total[None], max_dist)
+    return h[0], b[0]
+
+
+def solve_newton(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The Newton direction H^-1 b of one system (or a batch) by the
+    unrolled Cholesky solve."""
+    return cholesky_solve6(h, b)
+
+
+ensemble_solve = cholesky_solve6   # the solve is batched over leading axes

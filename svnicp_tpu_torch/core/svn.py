@@ -201,15 +201,40 @@ def xla_moments(cfg: SteinICPConfig, prep: AlignPrep, source, src_valid,
                                            cfg.max_dist)
 
 
+# the JAX package's names for two steps of the update, which the port keeps
+# beside the Stein kernel's plain version
+median_bandwidth = stein.median_bandwidth
+clip_step = stein.clip_step
+
+
+def prior_kernel_scale(cfg: SteinICPConfig, dtype, device=None) -> torch.Tensor:
+    """[6] kernel whitening scale under cfg.prior_information: the prior std
+    of the particle box."""
+    return torch.sqrt(1.0 / prior_inverse_variance(cfg, dtype, device))
+
+
+def add_prior_information(cfg: SteinICPConfig, hess, b, coords):
+    """The MAP prior term: the particle box as a Gaussian N(0, P) in local
+    [t, log R] coordinates, P = (ub-lb)^2/12; H += P^-1, b += P^-1 x."""
+    inv = prior_inverse_variance(cfg, coords.dtype, coords.device)
+    return hess + torch.diag(inv)[None], b + coords * inv[None, :]
+
+
+def rbf_kernel_block(x_rows: torch.Tensor, x_full: torch.Tensor, bw):
+    """RBF kernel rows K[i,j] = exp(-|x_i - x_j|^2 / bw) of the rows x_rows
+    [Pl,6] against x_full [P,6] -> (K [Pl,P], diff [Pl,P,6] = x_i - x_j)."""
+    diff = x_rows[:, None, :] - x_full[None, :, :]
+    return torch.exp(-(diff * diff).sum(-1) / bw), diff
+
+
 def rbf_kernel(x: torch.Tensor, x_rows: torch.Tensor | None = None):
     """RBF kernel K[i,j] = exp(-|x_i - x_j|^2 / h) with the lower-median
     bandwidth h of the full set x -> (K, h, diff = x_i - x_j), [P,P] and
     [P,P,6]; with `x_rows` [Pl,6] (a particle shard's rows) only those
     rows, [Pl,P] and [Pl,P,6]."""
-    bw = stein.median_bandwidth(x)
-    rows = x if x_rows is None else x_rows
-    diff = rows[:, None, :] - x[None, :, :]
-    return torch.exp(-(diff * diff).sum(-1) / bw), bw, diff
+    bw = median_bandwidth(x)
+    kernel, diff = rbf_kernel_block(x if x_rows is None else x_rows, x, bw)
+    return kernel, bw, diff
 
 
 def svgd_precond_grad(x, neg_newton, h_mean, kernel_scale=None,
@@ -255,10 +280,8 @@ def ensemble_update(cfg: SteinICPConfig, hess, b, r, t):
     coords = particle_coords(r, t)
     kernel_scale = None
     if cfg.prior_information:
-        inv = prior_inverse_variance(cfg, coords.dtype, coords.device)
-        hess = hess + torch.diag(inv)[None]
-        b = b + coords * inv[None, :]
-        kernel_scale = torch.sqrt(1.0 / inv)
+        hess, b = add_prior_information(cfg, hess, b, coords)
+        kernel_scale = prior_kernel_scale(cfg, coords.dtype, coords.device)
     newton = residuals.cholesky_solve6(hess, b)
     if p == 1:
         step = -newton
@@ -266,7 +289,7 @@ def ensemble_update(cfg: SteinICPConfig, hess, b, r, t):
         step = svn_full_update(coords, hess, -b, cfg.lr)
     else:
         step = svgd_precond_grad(coords, -newton, hess.mean(0), kernel_scale)
-    step = stein.clip_step(step, cfg.max_dist)
+    step = clip_step(step, cfg.max_dist)
     r_new, t_new = stein.pose_update(r, t, step)
     grad_norm = torch.linalg.vector_norm(step, dim=1).mean()
     if cfg.convergence_metric == "mean_delta":

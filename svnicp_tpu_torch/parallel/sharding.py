@@ -100,10 +100,8 @@ def _sharded_iteration(coll, cfg: SteinICPConfig, source, src_valid,
     kernel_scale = None
     if cfg.prior_information:
         # the MAP prior, once, after the point sum
-        inv = svn.prior_inverse_variance(cfg, coords.dtype, coords.device)
-        hess = hess + torch.diag(inv)[None]
-        b = b + coords * inv[None, :]
-        kernel_scale = torch.sqrt(1.0 / inv)
+        hess, b = svn.add_prior_information(cfg, hess, b, coords)
+        kernel_scale = svn.prior_kernel_scale(cfg, coords.dtype, coords.device)
     newton = residuals.cholesky_solve6(hess, b)
     coords_full = coll.all_gather(coords, PARTICLE_AXIS, tiled=True)
     if cfg.svn_full_grad:
@@ -116,7 +114,7 @@ def _sharded_iteration(coll, cfg: SteinICPConfig, source, src_valid,
         neg_newton_full = coll.all_gather(-newton, PARTICLE_AXIS, tiled=True)
         step = svn.svgd_precond_grad(coords_full, neg_newton_full, h_mean,
                                      kernel_scale, x_rows=coords)
-    step = stein.clip_step(step, cfg.max_dist)
+    step = svn.clip_step(step, cfg.max_dist)
     r_new, t_new = stein.pose_update(r, t, step)
     grad_norm = coll.pmean(torch.linalg.vector_norm(step, dim=1).mean(), PARTICLE_AXIS)
     if cfg.convergence_metric == "mean_delta":

@@ -30,17 +30,23 @@ def dev():
 def _kernel_names(fn, calls: int = 5):
     """The names of the CUDA kernels that `calls` calls of fn() launch, one
     entry per kernel (the profiler can drop a launch's event, rarely all of
-    a kernel's in five calls)."""
+    a kernel's in five calls, and once dropped a whole trace: a trace with
+    no CUDA event is taken once more, as chip_smoke.device_ms does, and an
+    empty retake fails)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    raise AssertionError(f"two profiler traces of {calls} calls held no CUDA event")
 
 
 @pytest.mark.parametrize("b,nt,k", [(1, 64, 1), (300, 5000, 12), (513, 20000, 32),
@@ -128,7 +134,7 @@ def test_plane_moments_kernel(dev, p, b, k, ties):
 
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("p,b,k", [(1, 7, 3), (10, 7, 12), (10, 300, 12), (30, 1000, 100),
-                                   (64, 1024, 32), (70, 1001, 104)])
+                                   (64, 1024, 32), (70, 1001, 104), (64, 4096, 104)])
 def test_point_moments_kernel(dev, p, b, k, ties):
     # candidate j sits 0.1 (j+1) m from its point, a sixth of the points
     # lie beyond the gate, 10% of the slots and of the points are invalid,
@@ -201,7 +207,7 @@ def test_point_moments_launches_its_two_kernels_and_nothing_else(dev):
 
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("p,b,k", [(1, 7, 3), (10, 300, 12), (30, 1000, 100),
-                                   (33, 1000, 100), (64, 1024, 32)])
+                                   (33, 1000, 100), (64, 1024, 32), (64, 4096, 32)])
 def test_nn_match_kernel(dev, p, b, k, ties):
     # the operands of the point-moments test above: candidate j sits
     # 0.1 (j+1) m from its point, 10% of the slots invalid and a point with

@@ -197,11 +197,12 @@ def first_index(prep, tied):
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("p,b,k,pad", [(1, 7, 3, True), (10, 37, 12, True),
                                        (30, 64, 100, True), (40, 50, 16, True),
-                                       (12, 45, 13, False)])
+                                       (12, 45, 13, False), (64, 64, 100, True)])
 def test_point_moments_kernel_source_on_the_cpu(emulated, p, b, k, pad, ties):
     # P=1, 10 and 12 take groups of 16 lanes, P=30 one of 32, P=40 two
-    # groups; B=7, 37 and 45 the 4-byte copies; K=13 left unpadded puts NaN
-    # biases past K inside the last chunk
+    # groups, P=64 two full groups of 32 (the bench's point-to-point row, K
+    # padded to 104); B=7, 37 and 45 the 4-byte copies; K=13 left unpadded
+    # puts NaN biases past K inside the last chunk
     params, prep, tied = point_operands(p, b, k, pad, ties)
     h_k, b_k = run_emulated(emulated, params, prep, 3.0)
     h_p, b_p = nn.point_moments_plain(params, prep, 3.0)
@@ -236,10 +237,10 @@ def run_match(entry, params, prep):
 @pytest.mark.parametrize("p,b,k,pad", [(1, 7, 8, True), (10, 37, 104, True),
                                        (30, 64, 104, True), (33, 37, 8, True),
                                        (40, 64, 104, True), (16, 64, 8, True),
-                                       (12, 45, 13, False)])
+                                       (12, 45, 13, False), (64, 64, 32, True)])
 def test_nn_match_kernel_source_on_the_cpu(emulated_match, p, b, k, pad, ties):
     # P=1, 10, 12 and 16 take groups of 16 lanes, P=30 one of 32, P=33 and
-    # 40 two groups in grid y; B=64 the 16-byte copies and float4 stores,
+    # 40 two groups in grid y, P=64 two full groups (the bench's SVGD row); B=64 the 16-byte copies and float4 stores,
     # B=7, 37 and 45 the 4-byte ones and a tile that ends inside the points;
     # K=13 left unpadded puts NaN biases past K inside the last chunk
     params, prep, tied = point_operands(p, b, k, pad, ties)
