@@ -45,6 +45,7 @@ from svnicp_tpu_torch.config import SteinICPConfig
 from svnicp_tpu_torch.core import geometry as geo
 from svnicp_tpu_torch.core import residuals
 from svnicp_tpu_torch.kernels import knn, nn, stein
+from svnicp_tpu_torch.runtime.profiling import span
 
 MIN_CONSTRAINT_POINTS = 6   # a 6-DoF system needs >= 6 constrained points
 
@@ -322,7 +323,9 @@ def _start(cfg: SteinICPConfig, source, src_valid, cand_pts, cand_valid, r0,
     operands and B3's prior -> (r, t, degenerate, prep, prior)."""
     r = geo.so3_exp(init_particles[:, 3:])
     t = init_particles[:, :3].contiguous()
-    if int(valid_pair_count(src_valid, cand_valid)) < MIN_CONSTRAINT_POINTS:
+    with span("svnicp.sync.degenerate"):
+        pairs = int(valid_pair_count(src_valid, cand_valid))
+    if pairs < MIN_CONSTRAINT_POINTS:
         return r, t, True, None, None
     prep = _prepare_align(cfg, source, src_valid, cand_pts, cand_valid, r0, t0)
     prior = None
@@ -336,21 +339,26 @@ def align(cfg: SteinICPConfig, source, src_valid, cand_pts, cand_valid, r0, t0,
           init_particles) -> AlignResult:
     """Run the SVN ensemble to convergence from `init_particles` [P,6]
     ([t, w] local corrections around the guess (r0, t0)) and return the
-    local correction distribution (ref: SVNICP.cpp:41-114)."""
-    r, t, degenerate, prep, prior = _start(cfg, source, src_valid, cand_pts,
-                                           cand_valid, r0, t0, init_particles)
-    if degenerate:
-        return ensemble_result(r, t, 0, float("inf"))
-    it = 0
-    grad_norm = torch.tensor(float("inf"), dtype=source.dtype,
-                             device=source.device)
-    while it < cfg.iterations:
-        r, t, grad_norm, stop = _svn_iteration(cfg, prep, source, src_valid,
-                                               prior, r0, t0, r, t)
-        it += 1
-        if cfg.early_stop and float(stop) < cfg.convergence_threshold:
-            break
-    return ensemble_result(r, t, it, grad_norm)
+    local correction distribution (ref: SVNICP.cpp:41-114). Spans: the
+    whole call, each pass of the loop, and inside it the read of the stop
+    statistic."""
+    with span("svnicp.align", on=source):
+        r, t, degenerate, prep, prior = _start(cfg, source, src_valid, cand_pts,
+                                               cand_valid, r0, t0, init_particles)
+        if degenerate:
+            return ensemble_result(r, t, 0, float("inf"))
+        it, done = 0, False
+        grad_norm = torch.tensor(float("inf"), dtype=source.dtype,
+                                 device=source.device)
+        while not done and it < cfg.iterations:
+            with span("svnicp.align.iter"):
+                r, t, grad_norm, stop = _svn_iteration(cfg, prep, source, src_valid,
+                                                       prior, r0, t0, r, t)
+                it += 1
+                if cfg.early_stop:
+                    with span("svnicp.sync.stop"):
+                        done = float(stop) < cfg.convergence_threshold
+        return ensemble_result(r, t, it, grad_norm)
 
 
 def align_with_history(cfg: SteinICPConfig, source, src_valid, cand_pts,
@@ -388,8 +396,9 @@ def align_with_history(cfg: SteinICPConfig, source, src_valid, cand_pts,
 def _candidates(cfg: SteinICPConfig, source, src_valid, target, tgt_valid, r0, t0):
     """Stage-1 candidates at the initial guess (`knn.find_candidate_points`:
     kernel B1 on the kernel route, by index otherwise)."""
-    at_guess = geo.transform_points(r0, t0, source)
-    return knn.find_candidate_points(cfg, at_guess, target, src_valid, tgt_valid)
+    with span("svnicp.candidates", on=source):
+        at_guess = geo.transform_points(r0, t0, source)
+        return knn.find_candidate_points(cfg, at_guess, target, src_valid, tgt_valid)
 
 
 def register(cfg: SteinICPConfig, source, src_valid, target, tgt_valid, r0, t0,

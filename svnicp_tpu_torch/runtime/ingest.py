@@ -25,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 
 from svnicp_tpu_torch.io import native
+from svnicp_tpu_torch.runtime import profiling
 
 
 def quantize(buf: np.ndarray) -> np.ndarray:
@@ -151,12 +152,13 @@ class IngestDriver:
             ds_buf, n_map = self._stage_scan_pre_untimed(points, timestamps)
         return ds_buf, n_map, self._pack_imu(t)
 
-    def _timed_stage_pre(self, points, timestamps):
-        """Worker-thread staging with its own clock, so preprocessing time
-        is attributed to the right frame."""
-        t0 = time.perf_counter()
-        out = self._stage_scan_pre_untimed(points, timestamps)
-        return out, time.perf_counter() - t0
+    def _timed_stage_pre(self, points, timestamps, frame_idx: int):
+        """Worker-thread staging timed by its own span (not the pipeline's
+        StageTimer), so preprocessing time is attributed to the right
+        frame."""
+        with profiling.Span(profiling.STAGE_SPANS["preprocess"], frame=frame_idx) as s:
+            out = self._stage_scan_pre_untimed(points, timestamps)
+        return out, s.seconds
 
     def _feed_scan_ahead(self, t: float, points: np.ndarray, timestamps,
                          init_particles):
@@ -167,8 +169,8 @@ class IngestDriver:
             self._stage_pool = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="svnicp-stage")
         imu = self._pack_imu(t)
-        fut = self._stage_pool.submit(self._timed_stage_pre, points, timestamps)
         idx = self._frames
+        fut = self._stage_pool.submit(self._timed_stage_pre, points, timestamps, idx)
         self._frames += 1
         self._last_frame_time = t
         self._pending.append((t, imu, fut, idx, init_particles))

@@ -57,11 +57,11 @@ from svnicp_tpu_torch.core import pointcloud as pc
 from svnicp_tpu_torch.core import segmentation as seg
 from svnicp_tpu_torch.core import icp_svd, smoother, svgd, svn, voxmap
 from svnicp_tpu_torch.device import resolve_device
-from svnicp_tpu_torch.runtime import packing
+from svnicp_tpu_torch.runtime import packing, profiling
 from svnicp_tpu_torch.runtime.ingest import ImuWindow, IngestDriver
 from svnicp_tpu_torch.runtime.posegraph import PoseGraph
 from svnicp_tpu_torch.runtime.posegraph_driver import PoseGraphDriver
-from svnicp_tpu_torch.runtime.profiling import StageTimer
+from svnicp_tpu_torch.runtime.profiling import StageTimer, span
 
 
 class OdometryState(NamedTuple):
@@ -155,13 +155,16 @@ def _imu_scan_predict(ekf: eskf_mod.ESKFState, imu: ImuWindow | None, noise,
     all padded slots leaves the state unchanged at invalid ones)."""
     if imu is None or imu.count == 0:
         return ekf
-    rows = torch.as_tensor(imu.buf[:imu.count]).to(device=ekf.cov.device,
-                                                   dtype=ekf.cov.dtype)
-    samples = [imu_mod.IMUSample(r[0], r[1:4], r[4:7]) for r in rows]
-    prev = samples[0]
-    for cur in samples:
-        ekf = eskf_mod.predict(ekf, prev, cur, noise, textbook_phi=textbook_phi)
-        prev = cur
+    with span("svnicp.filter.predict", on=ekf.cov):
+        with span("svnicp.upload"):
+            rows = torch.as_tensor(imu.buf[:imu.count]).to(device=ekf.cov.device,
+                                                           dtype=ekf.cov.dtype)
+        profiling.count("svnicp.imu_samples", imu.count)
+        samples = [imu_mod.IMUSample(r[0], r[1:4], r[4:7]) for r in rows]
+        prev = samples[0]
+        for cur in samples:
+            ekf = eskf_mod.predict(ekf, prev, cur, noise, textbook_phi=textbook_phi)
+            prev = cur
     return ekf
 
 
@@ -288,14 +291,15 @@ def _insert(cfg: PipelineConfig, state: OdometryState, cloud, pose_r, pose_t,
     """The map insert: the ordinary one, or with a mesh and map.sharded the
     key-range block insert (`voxmap_sharded.sharded_insert`)."""
     m = cfg.map
-    if mesh is not None and m.sharded:
-        from svnicp_tpu_torch.parallel import voxmap_sharded as vms
+    with span("svnicp.map.insert", on=pose_t):
+        if mesh is not None and m.sharded:
+            from svnicp_tpu_torch.parallel import voxmap_sharded as vms
 
-        return vms.sharded_insert(mesh, state.vmap, cloud, pose_r, pose_t,
-                                  m.voxel_size, m.max_points_per_voxel,
-                                  m.max_range, split_keys=state.split_keys)
-    return voxmap.insert(state.vmap, cloud, pose_r, pose_t, m.voxel_size,
-                         m.max_points_per_voxel, m.max_range)
+            return vms.sharded_insert(mesh, state.vmap, cloud, pose_r, pose_t,
+                                      m.voxel_size, m.max_points_per_voxel,
+                                      m.max_range, split_keys=state.split_keys)
+        return voxmap.insert(state.vmap, cloud, pose_r, pose_t, m.voxel_size,
+                             m.max_points_per_voxel, m.max_range)
 
 
 def bootstrap(cfg: PipelineConfig, state: OdometryState, points, valid,
@@ -352,8 +356,10 @@ def _kf_update(cfg: PipelineConfig, state: OdometryState, result, raw_var,
     tc = result.mean[:3]
     dt_f = torch.clamp_min(time - state.pose_time, 1e-3)
     vel_std = torch.tensor(lio.init_vel_std, dtype=dtype, device=device)
-    if not bool(torch.linalg.vector_norm(tc)
-                > 3.0 * dt_f * torch.linalg.vector_norm(vel_std)):
+    with span("svnicp.sync.align_ok"):
+        moved = bool(torch.linalg.vector_norm(tc)
+                     > 3.0 * dt_f * torch.linalg.vector_norm(vel_std))
+    if not moved:
         return ekf
     full_r, full_t = geo.transform_compose(guess_r, guess_t,
                                            geo.so3_exp(result.mean[3:]), tc)
@@ -435,9 +441,10 @@ def _register(cfg: PipelineConfig, state: OdometryState, source, guess_r,
         out = align(icp, *args, cand_pts, cand_valid, guess_r, guess_t,
                     init_particles)
     else:
-        target, overflow = voxmap.query_radius(
-            state.vmap, guess_t, cfg.preprocess.max_range + 10.0,
-            icp.target_capacity)
+        with span("svnicp.map.query", on=guess_t):
+            target, overflow = voxmap.query_radius(
+                state.vmap, guess_t, cfg.preprocess.max_range + 10.0,
+                icp.target_capacity)
         args += (target.points, target.valid, guess_r, guess_t, init_particles)
         if mesh is not None:
             from svnicp_tpu_torch.parallel import sharding
@@ -490,18 +497,21 @@ def odometry_step(cfg: PipelineConfig, state: OdometryState, to_map, source,
     # particle clipped: dragged, not converging) falls back to the
     # prediction and leaves the map and the variance rings untouched.
     # SVGD's grad_norm is an unclipped optimizer step with no such cap.
-    align_ok = bool(torch.isfinite(result.mean).all()
-                    & torch.isfinite(result.var).all()
-                    & torch.isfinite(result.grad_norm))
-    if icp.method == "svn":
-        align_ok = align_ok and bool(result.grad_norm < 0.999 * icp.max_dist)
+    with span("svnicp.sync.align_ok"):
+        align_ok = bool(torch.isfinite(result.mean).all()
+                        & torch.isfinite(result.var).all()
+                        & torch.isfinite(result.grad_norm))
+    if icp.method == "svn" and align_ok:
+        with span("svnicp.sync.align_ok"):
+            align_ok = bool(result.grad_norm < 0.999 * icp.max_dist)
     var_mean = smoother.mean_filtered(state.rings)
     rings = (smoother.push(state.rings, raw_var, scaled_var) if align_ok
              else state.rings)
     var_max = smoother.max_filtered(rings)
     if kf:
-        ekf = _kf_update(cfg, state, result, raw_var, scaled_var, var_mean,
-                         var_max, align_ok, guess_r, guess_t, time)
+        with span("svnicp.filter.update", on=raw_var):
+            ekf = _kf_update(cfg, state, result, raw_var, scaled_var, var_mean,
+                             var_max, align_ok, guess_r, guess_t, time)
         pose_r, pose_t = ekf.nav.r, ekf.nav.t
         var_rw = eskf_mod.random_walk_variance(ekf)
     else:
@@ -561,15 +571,17 @@ def odometry_step_pre(cfg: PipelineConfig, state: OdometryState, ds_buf,
     not the scan's)."""
     device, dtype = state.pose_t.device, state.pose_t.dtype
     map_cap = 2 * cfg.icp.source_capacity
-    buf = dequantize(torch.as_tensor(ds_buf).to(device), dtype)
-    to_map = pc.PaddedCloud(buf[:map_cap, :3],
-                            torch.arange(map_cap, device=device) < n_map)
-    if cfg.preprocess.deskew and buf.shape[1] == 4:
-        to_map = pc.PaddedCloud(
-            pc.deskew(to_map.points, to_map.valid, buf[:map_cap, 3],
-                      _deskew_motion(state)), to_map.valid)
-    source = pc.downsample_uniform(to_map, 1.5 * cfg.preprocess.voxel_size,
-                                   cfg.icp.source_capacity)
+    buf = torch.as_tensor(ds_buf).to(device)
+    with span("svnicp.preprocess", on=buf):
+        buf = dequantize(buf, dtype)
+        to_map = pc.PaddedCloud(buf[:map_cap, :3],
+                                torch.arange(map_cap, device=device) < n_map)
+        if cfg.preprocess.deskew and buf.shape[1] == 4:
+            to_map = pc.PaddedCloud(
+                pc.deskew(to_map.points, to_map.valid, buf[:map_cap, 3],
+                          _deskew_motion(state)), to_map.valid)
+        source = pc.downsample_uniform(to_map, 1.5 * cfg.preprocess.voxel_size,
+                                       cfg.icp.source_capacity)
     return odometry_step(cfg, state, to_map, source, time, init_particles,
                          skip_insert, imu, mesh)
 
@@ -589,7 +601,8 @@ def odometry_step_raw(cfg: PipelineConfig, state: OdometryState, points,
     """One frame from the raw padded scan (cropped on the host, or with
     per-point `timestamps` uncropped): preprocess on the device, then
     step."""
-    _, to_map, source, sel = _preprocess(cfg, state, points, valid, timestamps)
+    with span("svnicp.preprocess", on=points):
+        _, to_map, source, sel = _preprocess(cfg, state, points, valid, timestamps)
     state, out = odometry_step(cfg, state, to_map, source, time,
                                init_particles, skip_insert, imu, mesh)
     if sel is not None:
@@ -793,7 +806,9 @@ class LIOPipeline(IngestDriver, PoseGraphDriver):
     def _upload(self, rows: np.ndarray, n: int):
         """Packed rows (int16 with quantize_upload) -> (points [cap,3],
         valid [cap], timestamps [cap] or None) on the device."""
-        return raw_rows(torch.from_numpy(rows).to(self.device), n, _dtype(self.cfg))
+        with span("svnicp.upload"):
+            buf = torch.from_numpy(rows).to(self.device)
+        return raw_rows(buf, n, _dtype(self.cfg))
 
     def feed_scan(self, t: float, points: np.ndarray, timestamps=None,
                   init_particles=None) -> FrameOutput | None:
@@ -810,6 +825,10 @@ class LIOPipeline(IngestDriver, PoseGraphDriver):
         if (self._last_frame_time is not None
                 and t - self._last_frame_time < self.cfg.lio.frame_gap_seconds):
             return None
+        with span("svnicp.frame", on=self.state.pose_t, frame=self._frames):
+            return self._feed_scan(t, points, timestamps, init_particles)
+
+    def _feed_scan(self, t, points, timestamps, init_particles):
         pp = self.cfg.preprocess
         host_ds = (pp.host_downsample and not pp.use_segmentation
                    and not pp.feature_select and self._frames > 0
@@ -889,7 +908,7 @@ class LIOPipeline(IngestDriver, PoseGraphDriver):
         return outs[-1]
 
     def _dispatch_pre(self, t, ds_buf, n_map, imu, frame_idx, init_particles):
-        with self.timer.span("dispatch"):
+        with self.timer.span("dispatch", frame=frame_idx):
             self.state, out = odometry_step_pre(
                 self.cfg, self.state, ds_buf, n_map, self._time(t),
                 init_particles, self._skip_insert(frame_idx), imu, self.mesh)

@@ -9,7 +9,7 @@
 - a checkpoint of another configuration raises on its first mismatched
   field;
 - `StageTimer.reset` and `device_trace` (a torch.profiler trace written to
-  a directory).
+  a directory, with the program's spans in it).
 """
 
 import dataclasses
@@ -125,6 +125,11 @@ def test_stage_timer_reset_and_device_trace(tmp_path):
     assert t.counts["a"] == 1 and "a=" in t.report()
     t.reset()
     assert not t.totals and not t.counts and not t.last
-    with profiling.device_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert any((tmp_path / "trace").iterdir())
+    with profiling.device_trace(str(tmp_path / "trace")) as spans:
+        with profiling.span("svnicp.frame", frame=0):
+            torch.ones(8).sum()
+    files = list((tmp_path / "trace").iterdir())
+    assert files and all(f.name.endswith(".json") for f in files)
+    # the program's spans are written beside the host's operations
+    assert '"svnicp.frame"' in files[0].read_text()
+    assert [s.name for s in spans.spans] == ["svnicp.frame"]
