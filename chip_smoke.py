@@ -5,7 +5,7 @@
 
 Phases, each printing its own line(s); any failure raises and exits non-zero:
 1. device: the card's name, `nvidia-smi` name and power limit, TF32 off;
-2. build: nvcc builds the five CUDA kernels (sm_90a) and g++ the host
+2. build: nvcc builds the six CUDA kernels (sm_90a) and g++ the host
    staging library, from the sources in this checkout; every kernel's
    ptxas registers and spills are printed, and none may spill;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
@@ -15,9 +15,13 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    bound (B1 at both k, B3 at both P, B4 also at configs/subt_mrs.yaml's
    shapes, B1 and B2 also on the features path's operands: P=10, K=32,
    B=4096; B4 at P=64, B=4096, K=104 and B5 at P=64, K=32 on the
-   operands of the bench's point-to-point and SVGD rows, phase 18); then
-   one proxy sweep's feature selection and segmentation on the card
-   against the CPU, and their device time;
+   operands of the bench's point-to-point and SVGD rows, phase 18; F1 on
+   the live cell's 10-sample GEODE window and on the features path's
+   window of its noisy 100 Hz IMU, with textbook_phi off and on, against
+   the per-sample ops route in float32 and float64, with the ops route's
+   wall time a window beside its device time); then one proxy sweep's
+   feature selection and segmentation on the card against the CPU, and
+   their device time;
 4. main path: `LIOPipeline(configs/tpu_plane.yaml)` on 3 warm-up + 20 timed
    frames of the bench sequence (32,000-point scans of
    SyntheticWorld(extent=80, n_walls=24, n_boxes=16, seed=7)), with each
@@ -31,9 +35,10 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    B3) on 3 warm-up + 20 timed frames of the JAX package's `cli demo`
    recipe (32,000-point scans of SyntheticWorld(extent=60, seed=7) along a
    trajectory that ramps up from rest, synthetic IMU samples fed before
-   each scan), with the launch counts, every frame aligned, a non-zero
-   Kalman gain and ATE under the limit taken from the JAX package's own run
-   (GEODE_ATE_LIMIT below), its iterations per frame beside that run's;
+   each scan), with the launch counts (F1 once a frame after the
+   bootstrap), every frame aligned, a non-zero Kalman gain and ATE under
+   the limit taken from the JAX package's own run (GEODE_ATE_LIMIT below),
+   its iterations per frame beside that run's;
 6. SVGD path: `LIOPipeline(configs/generic_svgd.yaml)` with
    icp.use_pallas=True, the JAX package's kernel route for SVGD (P=30, Adam,
    per-point deskew; kernels B1 and B5), on 3 warm-up + 20 timed
@@ -61,7 +66,8 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    first-index stage 1, the 1-NN by index, the XLA Gauss-Newton system and
    Stein update), on 3 warm-up + 20 timed frames of the demo recipe at its
    own sizes (8,000-point scans of SyntheticWorld(extent=60, seed=0), IMU
-   samples fed before each scan): none of B1-B5 may launch, the frames
+   samples fed before each scan): none of B1-B5 may launch (F1 launches
+   once a frame after the bootstrap: the filter's state is on the card), the frames
    align as in the JAX package's run, the Kalman gain is non-zero and ATE
    stays under DEMO_ATE_LIMIT; its peak device memory is printed;
 10. SVGD path as written: configs/generic_svgd.yaml unchanged (the XLA
@@ -154,7 +160,12 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    kernel launched (the XLA route).
 Before the paths, one SubT-fast sweep's voxel keys are computed on the
 card and on the CPU: none may differ.
-Each path's launch counts are set to 0 just before it and read just after.
+Each path's launch counts are set to 0 just before it and read just after
+(`reset_launches`, `read_launches`); F1's must equal the IMU windows with
+samples that the filter propagated on the card in between (`count_windows`
+wraps `pipeline._imu_scan_predict` from phase 2 on), and on every KF path
+fed IMU samples (geode, features, demo, loop, CLI, degenerate scenes,
+the GEODE mesh) it is one a frame after the bootstrap.
 Each path prints its iterations per frame beside EARLIER_ITERS (those of
 the first B2 and B3 kernels) and names the frames that moved; the SVGD
 path, which runs neither, must repeat its count and the ATE of its B1 and
@@ -164,7 +175,8 @@ With `--profile`, a torch.profiler trace of 5 more frames of each path
 10 frames with the graph (where the loop closes).
 The last lines are the kernel table as JSON (`launches` summed over all
 paths, options, the CLI, the batched and threaded runs, the degenerate
-scenes, the mesh and the bench rows; B1-B3 once more at the loop
+scenes, the mesh and the bench rows; F1's time and bound on the 10-sample
+GEODE window; B1-B3 once more at the loop
 verification's shapes, with its launches; B2 and B4 at the mesh's shard shapes, with
 phase 16's launches; B4 and B5 at the bench rows' P=64 shapes, with phase
 18's launches), the run's wall time, the line `nvidia-smi --query-gpu=name,power.limit
@@ -325,7 +337,8 @@ LOOP_SHAPES = ("B1 (loop)", "B2 (loop)", "B3 (loop)")
 # the bench rows' new kernel shapes (phase 18), checked and timed in phase 3
 BENCH_SHAPES = ("B4 (bench P=64 K=104)", "B5 (bench P=64 K=32)")
 # kernels whose ptxas report must show no spill
-NO_SPILL = ("stein.cu", "plane_moments.cu", "point_moments.cu", "nn_match.cu", "stage1.cu")
+NO_SPILL = ("stein.cu", "plane_moments.cu", "point_moments.cu", "nn_match.cu", "stage1.cu",
+            "eskf_propagate.cu")
 
 
 # Phase 16's limits: max(1.5 x, x + 0.05 m), x the ATE of the JAX package's
@@ -759,6 +772,129 @@ def svgd_config():
 
     cfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "generic_svgd.yaml"))
     return dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, use_pallas=True))
+
+
+# ------------------------------------------------------------------ F1 inputs
+
+def geode_imu_frames(n_frames: int):
+    """The live cell's drive of the geode recipe: the trajectory of
+    geode_sequence sampled by a 100 Hz IMU, 10 samples a 10 Hz frame ->
+    [(frame stamp, the IMU samples (t, acc, gyro) fed before it)]."""
+    from svnicp_tpu_torch.core.imu import GRAVITY
+    from svnicp_tpu_torch.io import datasets
+
+    sub = 10
+    times, rots, trans = datasets.synthetic_trajectory(
+        (n_frames - 1) * sub + 1, dt=0.1 / sub, speed=1.5, seed=7, ramp_seconds=1.0)
+    imu = datasets.synthetic_imu(times, rots, trans, GRAVITY)
+    return [(times[k * sub], imu[max((k - 1) * sub + 1, 0):k * sub + 1])
+            for k in range(n_frames)]
+
+
+def eskf_inputs(cfg, frames, dev, last: int):
+    """F1's operands on a path's own window: its frames' IMU samples fed to a
+    pipeline on the card and each frame's window packed at its stamp by the
+    ingest (`_pack_imu`); the filter's
+    initial state propagated by the plain route over windows 1..last-1
+    -> (state, the rows of window `last`) in float32."""
+    import torch
+
+    from svnicp_tpu_torch.kernels import eskf
+    from svnicp_tpu_torch.runtime import pipeline as pl
+
+    pipe = pl.LIOPipeline(cfg, device=dev)
+    ekf = pipe.state.eskf
+    for k, (t, imus) in enumerate(frames[:last + 1]):
+        for sample in imus:
+            pipe.feed_imu(*sample)
+        win = pipe._pack_imu(float(t))
+        rows = torch.as_tensor(win.buf[:win.count]).to(device=dev, dtype=torch.float32)
+        if 0 < k < last:
+            ekf = eskf.propagate_plain(ekf, rows, cfg.imu, cfg.lio.textbook_phi)
+    pipe.close()
+    return ekf, rows
+
+
+def _eskf_gaps(got, want) -> tuple[float, float]:
+    """(nav, covariance) gaps: each of R, t, v and of cov, Q as its largest
+    |got - want| over want's largest entry."""
+    def gap(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    nav = max(gap(a, b) for a, b in zip(got.nav, want.nav))
+    return nav, max(gap(got.cov, want.cov), gap(got.process_noise, want.process_noise))
+
+
+def check_eskf(name, ekf, rows, noise, rows_out: list) -> None:
+    """F1 against the per-sample ops route on the same float32 operands on the
+    card, with textbook_phi off and on: nav within 5e-6 and covariance and
+    process noise within 2e-5 of the largest entry, and within 1e-5 and 4e-5
+    of the float64 route; biases and gain passed through; a repeat
+    bit-identical."""
+    import torch
+
+    from svnicp_tpu_torch.kernels import eskf
+
+    def to(state, dtype):
+        return state._replace(nav=type(state.nav)(*(x.to(dtype) for x in state.nav)),
+                              **{f: getattr(state, f).to(dtype)
+                                 for f in ("bg", "ba", "cov", "process_noise", "gain")})
+
+    for textbook in (False, True):
+        got = eskf.propagate(ekf, rows, noise, textbook)
+        again = eskf.propagate(ekf, rows, noise, textbook)
+        torch.cuda.synchronize()
+        plain = eskf.propagate_plain(ekf, rows, noise, textbook)
+        plain64 = eskf.propagate_plain(to(ekf, torch.float64), rows.double(), noise, textbook)
+        nav, cov = _eskf_gaps(got, plain)
+        nav64, cov64 = _eskf_gaps(got, plain64)
+        pnav64, pcov64 = _eskf_gaps(plain, plain64)
+        err = max(float((a.double() - b.double()).abs().max()) for a, b in
+                  zip((*got.nav, got.cov, got.process_noise),
+                      (*plain.nav, plain.cov, plain.process_noise)))
+        rows_out.append(err)
+        same = all(torch.equal(a, b) for a, b in
+                   zip((*got.nav, got.cov, got.process_noise),
+                       (*again.nav, again.cov, again.process_noise)))
+        print(f"kernel F1 eskf_propagate {name} textbook_phi={textbook}: against the "
+              f"float32 ops route nav {nav:.2e}, cov {cov:.2e} of the largest entry "
+              f"(max|kernel-plain| {err:.3g}); against float64 nav {nav64:.2e}, cov "
+              f"{cov64:.2e} (the float32 route: {pnav64:.2e}, {pcov64:.2e}); repeat run "
+              f"{'bit-identical' if same else 'DIFFERS'}")
+        assert nav < 5e-6 and cov < 2e-5, (name, textbook, nav, cov)
+        assert nav64 < 1e-5 and cov64 < 4e-5, (name, textbook, nav64, cov64)
+        for a, b in ((got.bg, ekf.bg), (got.ba, ekf.ba), (got.gain, ekf.gain)):
+            assert torch.equal(a, b), name
+        assert same, name
+
+
+def eskf_bound(n: int, itemsize: int) -> tuple[float, str]:
+    """F1's work for an n-sample window: per sample the covariance's two
+    15x15x15 products (2 x 2 x 3,375 operations), Q added (225) and ~200 for
+    the nav state and the transition's blocks; bytes: the rows read, the
+    state read (R, t, v, ba, cov: 243 values) and the packed output written
+    (465 values)."""
+    return bound_ms(n * (13_500 + 225 + 200.0), (7 * n + 243 + 465) * itemsize)
+
+
+def time_eskf(ekf, rows, noise) -> dict:
+    """F1's device time and wrapper call time on one window, the ops
+    route's device time, and its wall time per call with a synchronize
+    (the route is host-bound: ~100 small operations a sample)."""
+    import torch
+
+    from svnicp_tpu_torch.kernels import eskf
+
+    def plain_synced():
+        eskf.propagate_plain(ekf, rows, noise)
+        torch.cuda.synchronize()
+
+    b_ms, b_by = eskf_bound(rows.shape[0], rows.element_size())
+    return dict(ms=device_ms(lambda: eskf.propagate(ekf, rows, noise), 50,
+                             ["eskf_propagate"]),
+                call_ms=cuda_time_ms(lambda: eskf.propagate(ekf, rows, noise), 50),
+                plain_ms=device_ms(lambda: eskf.propagate_plain(ekf, rows, noise), 5),
+                plain_wall_ms=cuda_time_ms(plain_synced, 5), bound_ms=b_ms, bound_by=b_by)
 
 
 # ------------------------------------------------------------------ B1 inputs
@@ -1207,14 +1343,54 @@ KERNELS = {  # key: (wrapper path in the port, JSON name, source, TPU kernel)
            "svnicp_tpu_torch/csrc/point_moments.cu", "svnicp_tpu/kernels/nn_pallas.py:254"),
     "B5": ("nn.nn_match", "nn_match",
            "svnicp_tpu_torch/csrc/nn_match.cu", "svnicp_tpu/kernels/nn_pallas.py:65"),
+    # no pallas_call: the lax.scan over the window in _imu_scan_predict
+    "F1": ("eskf.propagate", "eskf_propagate",
+           "svnicp_tpu_torch/csrc/eskf_propagate.cu", "svnicp_tpu/runtime/pipeline.py:155"),
 }
 
 
 def _wrapper(key):
-    from svnicp_tpu_torch.kernels import nn, stein
+    from svnicp_tpu_torch.kernels import eskf, nn, stein
 
     mod, name = KERNELS[key][0].split(".")
-    return getattr({"nn": nn, "stein": stein}[mod], name)
+    return getattr({"nn": nn, "stein": stein, "eskf": eskf}[mod], name)
+
+
+# the IMU windows with samples that the filter propagated on the card since
+# the last reset_launches() (counted once count_windows() is installed)
+WINDOWS = {"n": 0}
+
+
+def count_windows() -> None:
+    """Wrap `pipeline._imu_scan_predict` for the rest of the run to count
+    the IMU windows with samples that it propagates on the card: F1 must
+    launch once for each (read_launches)."""
+    from svnicp_tpu_torch.runtime import pipeline as pl
+
+    inner = pl._imu_scan_predict
+
+    def counted(ekf, imu, *args, **kwargs):
+        if imu is not None and imu.count > 0 and ekf.cov.is_cuda:
+            WINDOWS["n"] += 1
+        return inner(ekf, imu, *args, **kwargs)
+
+    pl._imu_scan_predict = counted
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count, and the windows count, set to 0."""
+    for key in KERNELS:
+        _wrapper(key).launches = 0
+    WINDOWS["n"] = 0
+
+
+def read_launches() -> dict:
+    """Every kernel's launches since reset_launches(); F1's must equal the
+    IMU windows the filter propagated on the card since then (one launch a
+    window, none of the per-sample route)."""
+    launches = {key: _wrapper(key).launches for key in KERNELS}
+    assert launches["F1"] == WINDOWS["n"], (launches, WINDOWS)
+    return launches
 
 
 def feed(pipe, frames, lo: int, hi: int) -> None:
@@ -1236,8 +1412,7 @@ def run_path(cfg, frames, warmup=WARMUP, timed=TIMED, mesh=None):
     from svnicp_tpu_torch.runtime import pipeline as pl
 
     pipe = pl.LIOPipeline(cfg, device="cuda", mesh=mesh)
-    for key in KERNELS:
-        _wrapper(key).launches = 0
+    reset_launches()
     feed(pipe, frames, 0, warmup)
     pipe.flush()
     torch.cuda.synchronize()
@@ -1247,7 +1422,7 @@ def run_path(cfg, frames, warmup=WARMUP, timed=TIMED, mesh=None):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     pipe.close()
-    return pipe, dt, {key: _wrapper(key).launches for key in KERNELS}
+    return pipe, dt, read_launches()
 
 
 def report_path(name, pipe, dt, launches, rots, trans, smi, earlier,
@@ -1350,15 +1525,19 @@ def option_limit(name: str) -> float:
     return max(1.5 * ate, ate + 0.05)
 
 
-def expected_launches(name: str, cfg, pipe) -> dict:
+def expected_launches(name: str, cfg, pipe, imu_frames: bool) -> dict:
     """The launches an option's run must make: B1 a frame where stage 1 is
     the bucketed kernel, B2 and B3 an iteration where SVN runs on the
     kernel route (B2 alone with stein_kernel off or svn_full_grad, every
-    epoch with save_particles), none on the XLA route."""
+    epoch with save_particles), none on the XLA route; F1 a frame after
+    the bootstrap with the KF estimator and frames that carry IMU samples
+    (no option's do)."""
     icp = cfg.icp
     frames = len(pipe.outputs) - 1
     iters = sum(o.icp_iterations for o in pipe.outputs)
     want = {key: 0 for key in KERNELS}
+    if cfg.lio.estimator == "kf" and imu_frames:
+        want["F1"] = frames
     if icp.use_pallas and icp.candidate_method == "bucketed":
         want["B1"] = frames
     if icp.method == "svn" and icp.use_pallas:
@@ -1393,7 +1572,7 @@ def run_options(cfg_mod, frames, rots, trans, vframes, vgt_r, vgt_t, smi, dev) -
         print_jax_iters(f"option {name}", jax_iters, pipe)
         print(f"option {name}: ATE limit {option_limit(name):.4f} m (the JAX package's "
               f"float32 run: {jax_ate:.4f} m); peak device memory {peak:.0f} MiB")
-        want = expected_launches(name, cfg, pipe)
+        want = expected_launches(name, cfg, pipe, any(f[2] for f in fr[:n]))
         assert launches == want, (name, launches, want)
         assert ate < option_limit(name), (name, ate, option_limit(name))
         if cfg.save_particles:
@@ -1637,13 +1816,12 @@ def run_loop_cli(log, gt, cfg_path, probe=None):
 
     from svnicp_tpu_torch import cli
 
-    for key in KERNELS:
-        _wrapper(key).launches = 0
+    reset_launches()
     with probe or contextlib.nullcontext():
         pipe, summary = cli.main(["stream", "--log", log, "--config", cfg_path,
                                   "--gt", gt])
     torch.cuda.synchronize()
-    return pipe, summary, {key: _wrapper(key).launches for key in KERNELS}
+    return pipe, summary, read_launches()
 
 
 def loop_operands(pipe, dev):
@@ -1755,8 +1933,9 @@ def run_loop_phase(dev, smi, table, errs, profile: bool) -> tuple[dict, dict]:
     assert launches["B1"] == n - 1 + n_verify, (launches, n_verify)
     assert launches["B2"] == launches["B3"] == iters + loop_iters, (launches, iters, loop_iters)
     assert launches["B4"] == launches["B5"] == 0, launches
+    assert launches["F1"] == n - 1, launches
     oiters = sum(o.icp_iterations for o in opipe.outputs)
-    assert olaunches == dict(B1=n - 1, B2=oiters, B3=oiters, B4=0, B5=0), olaunches
+    assert olaunches == dict(B1=n - 1, B2=oiters, B3=oiters, B4=0, B5=0, F1=n - 1), olaunches
     assert len(pipe.loop_closures) >= 1 and pipe.reanchors >= 1, "the loop did not close"
     assert pipe.reanchors_rejected == 0, pipe.reanchors_rejected
     assert err < oerr, (err, oerr)
@@ -1779,8 +1958,7 @@ def run_cli_phase(smi) -> dict:
 
     total = {key: 0 for key in KERNELS}
     with tempfile.TemporaryDirectory() as d:
-        for key in KERNELS:
-            _wrapper(key).launches = 0
+        reset_launches()
         out = os.path.join(d, "demo.jsonl")
         pipe, summ = cli.main(["demo", "--frames", "8", "--output", out])
         torch.cuda.synchronize()
@@ -1788,15 +1966,17 @@ def run_cli_phase(smi) -> dict:
             types = [json_mod.loads(line)["_type"] for line in f]
         per_frame = ["RuntimeRecord", "OdometryRecord", "VarianceRecord",
                      "ParticleRecord", "KFGainRecord"]
+        launches = read_launches()
         print(f"cli demo --frames 8: summary {summ}; {len(types)} JSONL records "
               f"(ParametersRecord + {len(per_frame)} a frame: {', '.join(per_frame)}); "
-              f"launches {dict((k, _wrapper(k).launches) for k in KERNELS)}  [{smi}]")
+              f"launches {launches}  [{smi}]")
         assert types == ["ParametersRecord"] + per_frame * 8, types
         assert summ["frames"] == 8 and np.isfinite(summ["ate_rmse_m"]), summ
         assert all(o.align_ok for o in pipe.outputs)
+        assert launches["F1"] == 7, launches
         for key in KERNELS:
-            total[key] += _wrapper(key).launches
-            _wrapper(key).launches = 0
+            total[key] += launches[key]
+        reset_launches()
         log, gt = os.path.join(d, "run.svnl"), os.path.join(d, "gt.npy")
         cli.main(["record", "--log", log, "--frames", "10", "--gt", gt])
         out = os.path.join(d, "stream.jsonl")
@@ -1809,8 +1989,11 @@ def run_cli_phase(smi) -> dict:
         assert types == ["ParametersRecord"] + per_frame * 10, types
         assert summ["frames"] == 10 and np.isfinite(summ["ate_rmse_m"]), summ
         assert all(o.align_ok for o in pipe.outputs)
+        launches = read_launches()
+        print(f"cli record + stream: launches {launches}")
+        assert launches["F1"] == 9, launches
         for key in KERNELS:
-            total[key] += _wrapper(key).launches
+            total[key] += launches[key]
     return total
 
 
@@ -1852,8 +2035,7 @@ def run_batch_phase(cfg, frames, per_frame_pipe, smi) -> dict:
     def run(mode):
         c = dataclasses.replace(cfg, dispatch_batch=4) if mode == "batched" else cfg
         pipe = pl.LIOPipeline(c, device="cuda")
-        for key in KERNELS:
-            _wrapper(key).launches = 0
+        reset_launches()
         packing.copies.update(upload=0, readback=0)
 
         def drive(lo, hi):
@@ -1871,7 +2053,7 @@ def run_batch_phase(cfg, frames, per_frame_pipe, smi) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         pipe.close()
-        launches = {key: _wrapper(key).launches for key in KERNELS}
+        launches = read_launches()
         got = pipe.outputs
         assert len(got) == n, (mode, len(got))
         for i, (a, b) in enumerate(zip(got, want)):
@@ -1882,7 +2064,7 @@ def run_batch_phase(cfg, frames, per_frame_pipe, smi) -> dict:
         assert iters == want_iters, (mode, iters)
         assert launches["B1"] == n - 1, (mode, launches)
         assert launches["B2"] == launches["B3"] == sum(iters), (mode, launches)
-        assert launches["B4"] == launches["B5"] == 0, (mode, launches)
+        assert launches["B4"] == launches["B5"] == launches["F1"] == 0, (mode, launches)
         if mode == "batched":
             assert all(isinstance(o, packing.HostFrameOutput) for o in got[1:])
             batches = (WARMUP - 1) + (n - WARMUP) // 4
@@ -1970,8 +2152,7 @@ def run_degenerate(cfg, kind: str, device: str = "cuda"):
     world = datasets.DegenerateWorld(kind)
     rng = np.random.default_rng(0)
     pipe = pl.LIOPipeline(cfg, device=device)
-    for key in KERNELS:
-        _wrapper(key).launches = 0
+    reset_launches()
     for t, acc, gyro in datasets.synthetic_imu(times, rots, trans, GRAVITY):
         pipe.feed_imu(t, acc, gyro)
     for i in range(n):
@@ -1979,7 +2160,7 @@ def run_degenerate(cfg, kind: str, device: str = "cuda"):
     pipe.close()
     if device == "cuda":
         torch.cuda.synchronize()
-    return pipe, trans, {key: _wrapper(key).launches for key in KERNELS}
+    return pipe, trans, read_launches()
 
 
 def _ratios(pipe) -> np.ndarray:
@@ -2012,7 +2193,8 @@ def check_degenerate_claim(kind: str, r, err, pipe) -> None:
 def run_degenerate_phase(cfg_mod, smi) -> dict:
     """Phase 15: tests/test_degenerate_pipeline.py's scenes on the card.
     Corridor, tunnel and plane at kf_cfg(equilibrium=True) (float64, the
-    XLA route: no kernel may launch) with the JAX test's thresholds on the
+    XLA route: none of B1-B5 may launch, F1 in float64 once a frame after
+    the bootstrap) with the JAX test's thresholds on the
     prior-relative ratios r and its containment limits; then the same
     scenes in float32 on the kernel route (B1 at k=16, B2 and B3 at P=8):
     the launch counts, finite poses and align_ok, r printed beside the
@@ -2040,7 +2222,8 @@ def run_degenerate_phase(cfg_mod, smi) -> dict:
               f"{np.array2string(np.median(kd[:, 0:3], axis=0), precision=4)}; max |error| "
               f"per axis {np.array2string(np.abs(err).max(axis=0), precision=4)} m; "
               f"iterations {[o.icp_iterations for o in pipe.outputs]}")
-        assert all(v == 0 for v in launches.values()), launches
+        assert all(v == 0 for k, v in launches.items() if k != "F1"), launches
+        assert launches["F1"] == DEGENERATE_FRAMES - 1, launches
         check_degenerate_claim(kind, r, err, pipe)
         r64[kind] = r
     for kind in ("corridor", "tunnel", "plane"):
@@ -2055,6 +2238,7 @@ def run_degenerate_phase(cfg_mod, smi) -> dict:
         assert launches["B1"] == DEGENERATE_FRAMES - 1, launches
         assert launches["B2"] == launches["B3"] == iters > 0, (launches, iters)
         assert launches["B4"] == launches["B5"] == 0, launches
+        assert launches["F1"] == DEGENERATE_FRAMES - 1, launches
         assert np.isfinite(_errors(pipe, trans)).all()
         assert all(o.align_ok for o in pipe.outputs), kind
         for key in KERNELS:
@@ -2074,8 +2258,7 @@ def run_degenerate_phase(cfg_mod, smi) -> dict:
     scans = [datasets.raycast_scan(world._surfaces, np.eye(3), trans[i], max_range=50.0,
                                    rng=rng) for i in range(3)]
     pipe = pl.LIOPipeline(cfg, device="cuda")
-    for key in KERNELS:
-        _wrapper(key).launches = 0
+    reset_launches()
     for i in range(3):
         pipe.feed_scan(float(times[i]), scans[i])
     pipe.close()
@@ -2092,7 +2275,7 @@ def run_degenerate_phase(cfg_mod, smi) -> dict:
     assert np.isfinite(err).all() and np.abs(err[-1]).max() < 0.2, err
     assert int(pipe.outputs[0].map_points) < n_raw[0] // 2
     assert int(pipe.outputs[0].map_points) == int(cpu.outputs[0].map_points)
-    assert all(_wrapper(key).launches == 0 for key in KERNELS)
+    assert all(v == 0 for v in read_launches().values())
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s of wall time  [{smi}]")
     return total
 
@@ -2216,6 +2399,8 @@ def run_mesh_phase(cfg_mod, dev, smi, table, errs, frames, rots, trans, gframes,
                           stage1=False, timed=MESH_TIMED)
         iters = sum(o.icp_iterations for o in pipe.outputs)
         want = {key: 0 for key in KERNELS}
+        if cfg.lio.estimator == "kf":
+            want["F1"] = n - 1    # one window a frame after the bootstrap
         if kernel:
             want[kernel] = 8 * iters
             shard_launches[f"{kernel} (mesh shard)"] = run_launches[kernel]
@@ -2333,10 +2518,9 @@ def run_bench_phase(smi) -> tuple[dict, dict]:
         warmup, timed = bench.frame_counts(args)
         n = warmup + timed
         t_row = time.perf_counter()
-        for key in KERNELS:
-            _wrapper(key).launches = 0
+        reset_launches()
         res = bench.run(n_frames=n, warmup=warmup, repeat=repeat, **bench.run_kwargs(args))
-        launches = {key: _wrapper(key).launches for key in KERNELS}
+        launches = read_launches()
         rec = bench.record(args, res, smi)
         print(f"bench row {name} ({' '.join(flags) or 'default'}; {warmup} + {timed} "
               f"frames, {res.passes} passes, {time.perf_counter() - t_row:.1f} s with "
@@ -2384,10 +2568,9 @@ def run_scaling_phase(smi) -> None:
     from svnicp_tpu_torch import bench_scaling
 
     t_phase = time.perf_counter()
-    for key in KERNELS:
-        _wrapper(key).launches = 0
+    reset_launches()
     rows = bench_scaling.main(["--reps", "1"])
-    launches = {key: _wrapper(key).launches for key in KERNELS}
+    launches = read_launches()
     base = rows[0][1].mean[:3]
     drift = [float((out.mean[:3] - base).abs().max()) for _, out in rows]
     print(f"phase 19: meshes {[line['mesh'] for line, _ in rows]}, translation against "
@@ -2459,6 +2642,7 @@ def main() -> int:
     print(f"build: {len(_build.CUDA_SOURCES)} CUDA kernels (nvcc sm_90a, in "
           f"parallel) + host staging (g++) in {time.perf_counter() - t0:.1f} s")
     check_ptxas(_build.build_log)
+    count_windows()
 
     cfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "tpu_plane.yaml"))
     gcfg = cfg_mod.from_yaml(os.path.join(ROOT, "configs", "geode_alpha.yaml"))
@@ -2575,6 +2759,15 @@ def main() -> int:
     table["B3"] = time_stein(hess, bb, r, t)
     table[f"B3 (geode and features P={gp})"] = time_stein(ghess, gbb, gr, gt)
     table[f"B3 (subt-fast P={sp})"] = time_stein(shess, sbb, sr, st)
+    # F1 on the live cell's 10-sample geode window and on the features
+    # path's window of its noisy, biased 100 Hz IMU, each on the filter's
+    # state after the windows before it
+    gekf, grows = eskf_inputs(gcfg, geode_imu_frames(4), dev, 3)
+    check_eskf(f"geode window n={grows.shape[0]}", gekf, grows, gcfg.imu, errs["F1"])
+    fekf, frows = eskf_inputs(fcfg, [(f[0], f[2]) for f in pframes], dev, 3)
+    check_eskf(f"features window n={frows.shape[0]}", fekf, frows, fcfg.imu, errs["F1"])
+    table["F1"] = time_eskf(gekf, grows, gcfg.imu)
+    table[f"F1 (features n={frows.shape[0]})"] = time_eskf(fekf, frows, fcfg.imu)
     # those bounds are far below one launch: the device time of a
     # one-element fill is the least any kernel takes here
     one = torch.zeros(1, device=dev)
@@ -2589,6 +2782,10 @@ def main() -> int:
               f"({row['call_ms']:.4f} ms per wrapper call, back to back)  plain "
               f"{row['plain_ms']:.4f} ms on the device  bound {row['bound_ms']:.5f} ms "
               f"({row['bound_by']})  library_ms: none  [{smi}]")
+    print(f"time F1: the per-sample ops route takes {table['F1']['plain_wall_ms']:.3f} ms "
+          f"of wall a {grows.shape[0]}-sample window with a synchronize (host-bound), "
+          f"{table[f'F1 (features n={frows.shape[0]})']['plain_wall_ms']:.3f} ms a "
+          f"{frows.shape[0]}-sample one  [{smi}]")
 
     # ---- 4. main path
     frames = [(times[i], scans[i], [], None) for i in range(n_frames)]
@@ -2597,7 +2794,7 @@ def main() -> int:
                       rots, trans, smi, EARLIER_ITERS["main"])
     iters = sum(o.icp_iterations for o in pipe.outputs)
     assert launches["B2"] == iters == launches["B3"], (launches, iters)
-    assert launches["B4"] == launches["B5"] == 0, launches
+    assert launches["B4"] == launches["B5"] == launches["F1"] == 0, launches
     print_jax_iters("main path", PLANE_JAX_ITERS, pipe)
     print(f"main path: ATE limit {PLANE_ATE_LIMIT:.4f} m (the JAX package's float32 "
           f"run: {PLANE_JAX_ATE:.4f} m)")
@@ -2620,6 +2817,8 @@ def main() -> int:
           f"{GEODE_JAX_ATE:.4f} m)")
     assert glaunches["B4"] == giters == glaunches["B3"], (glaunches, giters)
     assert glaunches["B2"] == glaunches["B5"] == 0, glaunches
+    # every frame carries IMU samples; the first is the map's bootstrap
+    assert glaunches["F1"] == n_frames - 1, glaunches
     assert all(x > 0 for x in gains[1:]), gains
     assert gate < GEODE_ATE_LIMIT, (gate, GEODE_ATE_LIMIT)
     if args.profile:
@@ -2637,7 +2836,8 @@ def main() -> int:
           f"mid-sweep poses, limit {SVGD_ATE_LIMIT:.4f} m (the JAX package's "
           f"float32 run: {SVGD_JAX_ATE:.4f} m)")
     assert vlaunches["B5"] == viters > 0, (vlaunches, viters)
-    assert vlaunches["B2"] == vlaunches["B3"] == vlaunches["B4"] == 0, vlaunches
+    assert vlaunches["B2"] == vlaunches["B3"] == vlaunches["B4"] == vlaunches["F1"] == 0, \
+        vlaunches
     assert vate < SVGD_ATE_LIMIT, (vate, SVGD_ATE_LIMIT)
     # B2 and B3 are off this path: it repeats its count and its B1 and B5's ATE
     assert [o.icp_iterations for o in vpipe.outputs] == EARLIER_ITERS["svgd"]
@@ -2661,6 +2861,7 @@ def main() -> int:
           f"package's float32 run: {FEATURES_JAX_ATE:.4f} m)")
     assert flaunches["B2"] == fiters == flaunches["B3"], (flaunches, fiters)
     assert flaunches["B4"] == flaunches["B5"] == 0, flaunches
+    assert flaunches["F1"] == n_frames - 1, flaunches
     assert all(x > 0 for x in fgains[1:]), fgains
     assert all(e + p > 0 for e, p, _ in picks), picks
     assert fate < FEATURES_ATE_LIMIT, (fate, FEATURES_ATE_LIMIT)
@@ -2678,7 +2879,7 @@ def main() -> int:
           f"{SUBT_FAST_ATE_LIMIT:.4f} m (the JAX package's float32 run: "
           f"{SUBT_FAST_JAX_ATE:.4f} m)")
     assert slaunches["B4"] == siters == slaunches["B3"], (slaunches, siters)
-    assert slaunches["B2"] == slaunches["B5"] == 0, slaunches
+    assert slaunches["B2"] == slaunches["B5"] == slaunches["F1"] == 0, slaunches
     assert sate < SUBT_FAST_ATE_LIMIT, (sate, SUBT_FAST_ATE_LIMIT)
     if args.profile:
         profile_frames(sfcfg, pframes, WARMUP, 5)
@@ -2698,7 +2899,8 @@ def main() -> int:
     print(f"demo path: max |Kalman gain| per frame {[f'{x:.3g}' for x in dgains]}; "
           f"ATE limit {DEMO_ATE_LIMIT:.4f} m (the JAX package's float32 run: "
           f"{DEMO_JAX_ATE:.4f} m); peak device memory {dpeak:.0f} MiB")
-    assert all(v == 0 for v in dlaunches.values()), dlaunches
+    assert all(v == 0 for k, v in dlaunches.items() if k != "F1"), dlaunches
+    assert dlaunches["F1"] == n_frames - 1, dlaunches
     assert all(x > 0 for x in dgains[1:]), dgains
     assert date < DEMO_ATE_LIMIT, (date, DEMO_ATE_LIMIT)
     if args.profile:

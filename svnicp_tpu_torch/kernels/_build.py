@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "svnicp_tpu_torch"
 CUDA_SOURCES = ("stage1.cu", "plane_moments.cu", "point_moments.cu", "stein.cu",
-                "nn_match.cu")
+                "nn_match.cu", "eskf_propagate.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +40,7 @@ SIGNATURES = {
     "point_moments.cu": {"svn_point_moments": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 4},
     "stein.cu": {"svn_stein_update": [_P] * 5 + [_I, _F] + [_P] * 4},
     "nn_match.cu": {"svn_nn_match": [_P] * 3 + [_I] * 3 + [_P] * 3},
+    "eskf_propagate.cu": {"svn_eskf_propagate": [_P] * 7 + [_I] * 3 + [_P] * 2},
 }
 
 _lock = threading.Lock()

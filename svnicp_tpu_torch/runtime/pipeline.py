@@ -57,6 +57,7 @@ from svnicp_tpu_torch.core import pointcloud as pc
 from svnicp_tpu_torch.core import segmentation as seg
 from svnicp_tpu_torch.core import icp_svd, smoother, svgd, svn, voxmap
 from svnicp_tpu_torch.device import resolve_device
+from svnicp_tpu_torch.kernels import eskf as eskf_kernel
 from svnicp_tpu_torch.runtime import packing, profiling
 from svnicp_tpu_torch.runtime.ingest import ImuWindow, IngestDriver
 from svnicp_tpu_torch.runtime.posegraph import PoseGraph
@@ -152,7 +153,9 @@ def _imu_scan_predict(ekf: eskf_mod.ESKFState, imu: ImuWindow | None, noise,
     """ESKF predict over the window's valid samples, each the finish sample
     of one interval; the previous sample starts as the window's first
     sample itself (the JAX package's `_imu_scan_predict`, whose scan over
-    all padded slots leaves the state unchanged at invalid ones)."""
+    all padded slots leaves the state unchanged at invalid ones). A state
+    on the card propagates in one launch of F1 (`kernels/eskf.propagate`),
+    elsewhere by `eskf.predict` per sample (`propagate_plain`)."""
     if imu is None or imu.count == 0:
         return ekf
     with span("svnicp.filter.predict", on=ekf.cov):
@@ -160,12 +163,10 @@ def _imu_scan_predict(ekf: eskf_mod.ESKFState, imu: ImuWindow | None, noise,
             rows = torch.as_tensor(imu.buf[:imu.count]).to(device=ekf.cov.device,
                                                            dtype=ekf.cov.dtype)
         profiling.count("svnicp.imu_samples", imu.count)
-        samples = [imu_mod.IMUSample(r[0], r[1:4], r[4:7]) for r in rows]
-        prev = samples[0]
-        for cur in samples:
-            ekf = eskf_mod.predict(ekf, prev, cur, noise, textbook_phi=textbook_phi)
-            prev = cur
-    return ekf
+        if rows.is_cuda:
+            profiling.count("svnicp.filter.kernel_windows", 1)
+            return eskf_kernel.propagate(ekf, rows, noise, textbook_phi)
+        return eskf_kernel.propagate_plain(ekf, rows, noise, textbook_phi)
 
 
 def _predict_pose(cfg: PipelineConfig, state: OdometryState, time: torch.Tensor):

@@ -760,3 +760,220 @@ def test_in_process_mesh_on_the_card_equals_the_cpu(dev):
     assert int(r_g.iterations) == int(r_c.iterations) == 12
     assert torch.equal(m_g.key.cpu(), m_c.key) and torch.equal(m_g.valid.cpu(), m_c.valid)
     assert torch.equal(s_g.cpu(), s_c) and (d_g, e_g) == (d_c, e_c)
+
+
+@pytest.mark.parametrize("textbook", [False, True])
+@pytest.mark.parametrize("n", [1, 10, 11, 256])
+def test_eskf_propagate_kernel(dev, n, textbook):
+    """F1 against the per-sample ops route on the card: in float32 against
+    the float32 route and the float64 one, and in float64; nonzero biases, a
+    small-angle sample and the first interval from the window's first row
+    (test_torch_eskf_propagate.eskf_operands)."""
+    from svnicp_tpu_torch.kernels import eskf as eskf_kernel
+    from test_torch_eskf_propagate import NOISE, eskf_operands, propagate_close, state_to
+
+    s32, r32 = eskf_operands(n, torch.float32)
+    s32, r32 = state_to(s32, dev), r32.to(dev)
+    s64, r64 = eskf_operands(n, torch.float64)
+    s64, r64 = state_to(s64, dev), r64.to(dev)
+    before = eskf_kernel.propagate.launches
+    k32 = eskf_kernel.propagate(s32, r32, NOISE, textbook)
+    k64 = eskf_kernel.propagate(s64, r64, NOISE, textbook)
+    torch.cuda.synchronize()
+    assert eskf_kernel.propagate.launches == before + 2
+    p32 = eskf_kernel.propagate_plain(s32, r32, NOISE, textbook)
+    p64 = eskf_kernel.propagate_plain(s64, r64, NOISE, textbook)
+    # float32 over up to 256 chained samples: the kernel's and the ops
+    # route's sums in another order drift apart by a few units in the last
+    # place a sample; the float32 route itself sits 3e-6 (nav) and 6e-6 (Q)
+    # of the largest entry from float64 at 256 samples (on the CPU)
+    propagate_close(k32, p32, 5e-6, 2e-5)
+    propagate_close(k32, state_to(p64, torch.float32), 1e-5, 4e-5)
+    propagate_close(k64, p64, 1e-12, 1e-12)
+    again = eskf_kernel.propagate(s32, r32, NOISE, textbook)
+    assert all(torch.equal(a, b) for a, b in zip((*k32.nav, k32.cov), (*again.nav, again.cov)))
+    names = _kernel_names(lambda: eskf_kernel.propagate(s32, r32, NOISE, textbook))
+    assert len(names) == 1 and "eskf_propagate" in names[0], names
+
+
+def _geode_live_drive(n: int):
+    """n GEODE frames as the live cell drives them: configs/geode_alpha.yaml,
+    32,000-point scans at 10 Hz, a 100 Hz IMU (10 samples a frame), and each
+    frame's particle draws -> (config, feed), feed(pipe, k) feeding frame k."""
+    import pathlib
+
+    from svnicp_tpu_torch import config as cfg_mod
+    from svnicp_tpu_torch.core.imu import GRAVITY
+    from svnicp_tpu_torch.io import datasets
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    cfg = cfg_mod.from_yaml(str(root / "configs" / "geode_alpha.yaml"))
+    sub = 10
+    world = datasets.SyntheticWorld(extent=60.0, seed=7)
+    times, rots, trans = datasets.synthetic_trajectory(
+        (n - 1) * sub + 1, dt=0.1 / sub, speed=1.5, seed=7, ramp_seconds=1.0)
+    rng = np.random.default_rng(7)
+    scans = [world.scan_at(rng, rots[i], trans[i], n_points=32000)
+             for i in range(0, len(times), sub)]
+    imu = datasets.synthetic_imu(times, rots, trans, GRAVITY)
+    lb, ub = np.array(cfg.icp.init_lb), np.array(cfg.icp.init_ub)
+    draws = (lb + (ub - lb) * rng.random((n, cfg.icp.particle_count, 6))).astype(np.float32)
+
+    def feed(pipe, k):
+        for j in range(max((k - 1) * sub + 1, 0), k * sub + 1):
+            pipe.feed_imu(*imu[j])
+        return pipe.feed_scan(float(times[k * sub]), scans[k], init_particles=draws[k])
+
+    return cfg, feed
+
+
+def _ops_route(ekf, rows, noise, textbook=False):
+    from svnicp_tpu_torch.kernels import eskf as eskf_kernel
+
+    return eskf_kernel.propagate_plain(ekf, rows, noise, textbook)
+
+
+def _ops_route_in_float64(ekf, rows, noise, textbook=False):
+    """The per-sample ops route computed in float64 and rounded to the
+    state's dtype at the window's end: the same propagation, rounded once
+    instead of at every operation."""
+    from svnicp_tpu_torch.kernels import eskf as eskf_kernel
+    from test_torch_eskf_propagate import state_to
+
+    out = eskf_kernel.propagate_plain(state_to(ekf, torch.float64), rows.double(), noise,
+                                      textbook)
+    return state_to(out, ekf.cov.dtype)
+
+
+def _free_run(cfg, feed, n, dev, nudge_after=None):
+    """A LIOPipeline on the card fed n frames with nothing stepped from
+    another run; with `nudge_after` = k, every entry of the filter's nav
+    state (R, t, v) and covariance is moved up by one unit in the last
+    place after frame k -> (positions [n,3], iterations per frame)."""
+    from svnicp_tpu_torch.runtime import pipeline
+
+    def up(x):
+        return torch.nextafter(x, torch.full_like(x, float("inf")))
+
+    pipe = pipeline.LIOPipeline(cfg, device=dev)
+    poses, iters = [], []
+    for k in range(n):
+        out = feed(pipe, k)
+        assert bool(out.align_ok), k
+        poses.append(out.pose_t.double().cpu())
+        iters.append(int(out.icp_iterations))
+        if k == nudge_after:
+            ekf = pipe.state.eskf
+            ekf = ekf._replace(nav=type(ekf.nav)(*(up(x) for x in ekf.nav)), cov=up(ekf.cov))
+            pipe.state = pipe.state._replace(eskf=ekf)
+    pipe.close()
+    return torch.stack(poses), iters
+
+
+def test_pipeline_propagates_each_imu_window_in_one_launch(dev, monkeypatch):
+    """30 GEODE frames (configs/geode_alpha.yaml, 32,000-point scans, a
+    100 Hz IMU: 10 samples a frame) through LIOPipeline on the card: F1
+    launches once for every frame that carries IMU samples, and each frame
+    stepped by the per-sample ops route from the kernel run's own state
+    (a second pipeline fed alike, the same particle draws) predicts the
+    same pose to float32's rounding and registers it within 1 mm. Two free
+    runs would not do: the float32 stop statistic is chaotic at its
+    threshold, so a 1e-10 m gap in one prediction moves the iteration counts
+    and two runs drift apart by centimetres in 30 frames, the ops route
+    from another rounding of itself too (test_float32_free_runs_part_by_
+    rounding_alone); free runs are held together in float64."""
+    from svnicp_tpu_torch.kernels import eskf as eskf_kernel
+    from svnicp_tpu_torch.runtime import pipeline, profiling
+
+    n = 30
+    cfg, feed = _geode_live_drive(n)
+    kernel = eskf_kernel.propagate
+
+    pipe_k = pipeline.LIOPipeline(cfg, device=dev)
+    pipe_o = pipeline.LIOPipeline(cfg, device=dev)
+    before, windows, predicts, guess_gaps, pose_gaps = kernel.launches, 0, 0, [], []
+    for k in range(n):
+        pipe_o.state = pipe_k.state
+        with profiling.tracing() as trace:
+            out_k = feed(pipe_k, k)
+        windows += trace.counters.get("svnicp.filter.kernel_windows", 0)
+        predicts += len(trace.named("svnicp.filter.predict"))
+        monkeypatch.setattr(eskf_kernel, "propagate", _ops_route)
+        out_o = feed(pipe_o, k)
+        monkeypatch.setattr(eskf_kernel, "propagate", kernel)
+        assert bool(out_k.align_ok) and bool(out_o.align_ok)
+        guess_gaps.append(float((out_k.guess_t - out_o.guess_t).norm()))
+        pose_gaps.append(float((out_k.pose_t - out_o.pose_t).norm()))
+    pipe_k.close()
+    pipe_o.close()
+    print(f"kernel vs ops route from the same state, {n} GEODE frames: largest "
+          f"guess gap {max(guess_gaps):.3e} m, pose gap {max(pose_gaps):.3e} m")
+    # every frame carries IMU samples; the first is the map's bootstrap,
+    # which propagates nothing
+    assert windows == predicts == kernel.launches - before == n - 1
+    assert max(guess_gaps) < 1e-5     # a few float32 ulps at the drive's ~5 m
+    assert max(pose_gaps) < 1e-3      # two steps of the 5e-4 stop threshold
+
+
+def test_free_runs_of_the_two_routes_agree_in_float64(dev, monkeypatch):
+    """The same 30 GEODE frames in float64 (the XLA route of the
+    registration; F1 in float64), one pipeline on F1 and one on the
+    per-sample ops route, neither stepped from the other: their positions
+    stay within 1 mm, so F1 builds up no bias over the frames; the
+    float32 runs are measured beside them (PERF.md)."""
+    import dataclasses
+
+    from svnicp_tpu_torch.kernels import eskf as eskf_kernel
+
+    n = 30
+    cfg, feed = _geode_live_drive(n)
+    cfg = dataclasses.replace(cfg, dtype="float64",
+                              icp=dataclasses.replace(cfg.icp, use_pallas=False))
+    before = eskf_kernel.propagate.launches
+    pos_k, it_k = _free_run(cfg, feed, n, dev)
+    assert eskf_kernel.propagate.launches - before == n - 1
+    monkeypatch.setattr(eskf_kernel, "propagate", _ops_route)
+    pos_o, it_o = _free_run(cfg, feed, n, dev)
+    gap = float((pos_k - pos_o).norm(dim=1).max())
+    print(f"float64, {n} GEODE frames, free runs: F1 against the ops route, largest "
+          f"position gap {gap:.3e} m; iterations {sum(it_k)} against {sum(it_o)}, "
+          f"{sum(a != b for a, b in zip(it_k, it_o))} frames differ")
+    assert gap < 1e-3
+
+
+def test_float32_free_runs_part_by_rounding_alone(dev, monkeypatch):
+    """Why the float32 comparison of the two routes steps one from the
+    other's state: the per-sample ops route, run free on the same 30 GEODE
+    frames beside itself computed in float64 and rounded once a window (the
+    same propagation, another rounding), parts further than the 1 mm that
+    test_pipeline_propagates_each_imu_window_in_one_launch holds the two
+    routes to, as F1 does (the float32 stop statistic is chaotic at its
+    threshold); each run repeats itself bit for bit. Printed beside: the
+    ops route with every entry of its filter state moved by one unit in
+    the last place after frame 1."""
+    from svnicp_tpu_torch.kernels import eskf as eskf_kernel
+
+    n = 30
+    cfg, feed = _geode_live_drive(n)
+    pos_k, it_k = _free_run(cfg, feed, n, dev)
+    monkeypatch.setattr(eskf_kernel, "propagate", _ops_route)
+    pos_o, it_o = _free_run(cfg, feed, n, dev)
+    again, _ = _free_run(cfg, feed, n, dev)
+    pos_u, it_u = _free_run(cfg, feed, n, dev, nudge_after=1)
+    monkeypatch.setattr(eskf_kernel, "propagate", _ops_route_in_float64)
+    pos_r, it_r = _free_run(cfg, feed, n, dev)
+
+    def parted(pos, its):
+        gap = (pos - pos_o).norm(dim=1)
+        first = next((k for k, (a, b) in enumerate(zip(it_o, its)) if a != b), None)
+        return float(gap.max()), (f"{float(gap.max()):.3e} m (iterations first differ at "
+                                  f"frame {first}, {sum(its)} against {sum(it_o)})")
+
+    _, k_line = parted(pos_k, it_k)
+    rounded, r_line = parted(pos_r, it_r)
+    _, u_line = parted(pos_u, it_u)
+    print(f"float32, {n} GEODE frames, free runs against the ops route: F1 {k_line}; "
+          f"the ops route rounded once a window {r_line}; nudged by one ulp after frame 1 "
+          f"{u_line}")
+    assert torch.equal(again, pos_o)
+    assert rounded > 1e-3

@@ -5,15 +5,15 @@ PyTorch versions.
 
 g++ compiles each unchanged source against a small emulation of the CUDA
 features it uses: each block's threads run as host threads with a block
-barrier, a warp shuffle meets its warp at a per-warp barrier, and a
-cp.async copy is a plain copy. The library keeps the kernel's C entry, so
-the wrapper's arguments go to it as they go to the built kernel on the
-card, and its outputs are held to the plain version as the card tests hold
-the built kernel (tests/test_torch_cuda.py). This checks each kernel's
-indexing, particle groups or source blocks, tie sums, hand-over between
-warps or blocks and its epilogue on a host without a card; the timing of the
-asynchronous copies, and anything the card's compiler does, only the card
-shows.
+barrier, a warp shuffle meets its warp at a per-warp barrier (which is
+also `__syncwarp`), and a cp.async copy is a plain copy. The library keeps
+the kernel's C entry, so the wrapper's arguments go to it as they go to
+the built kernel on the card, and its outputs are held to the plain
+version as the card tests hold the built kernel (tests/test_torch_cuda.py).
+This checks each kernel's indexing, particle groups or source blocks, tie
+sums, hand-over between warps or blocks and its epilogue on a host without
+a card; the timing of the asynchronous copies, and anything the card's
+compiler does, only the card shows.
 """
 
 import ctypes
@@ -60,6 +60,7 @@ inline float g_xchg[1024];
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
 inline void __syncthreads() { g_block->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { g_warps[threadIdx.x / 32]->arrive_and_wait(); }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline float __shfl_xor_sync(unsigned, float v, int off) {
   const int t = threadIdx.x;
