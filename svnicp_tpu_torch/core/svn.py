@@ -45,7 +45,7 @@ from svnicp_tpu_torch.config import SteinICPConfig
 from svnicp_tpu_torch.core import geometry as geo
 from svnicp_tpu_torch.core import residuals
 from svnicp_tpu_torch.kernels import knn, nn, stein
-from svnicp_tpu_torch.runtime.profiling import span
+from svnicp_tpu_torch.runtime.profiling import count, span
 
 MIN_CONSTRAINT_POINTS = 6   # a 6-DoF system needs >= 6 constrained points
 
@@ -395,8 +395,12 @@ def align_with_history(cfg: SteinICPConfig, source, src_valid, cand_pts,
 
 def _candidates(cfg: SteinICPConfig, source, src_valid, target, tgt_valid, r0, t0):
     """Stage-1 candidates at the initial guess (`knn.find_candidate_points`:
-    kernel B1 on the kernel route, by index otherwise)."""
+    kernel B1 on the kernel route, by index otherwise). Counters, from the
+    shapes: `svnicp.candidates.scores`, the (source, target) pairs scored,
+    padding rows included, and `svnicp.candidates.target_rows`."""
     with span("svnicp.candidates", on=source):
+        count("svnicp.candidates.scores", source.shape[0] * target.shape[0])
+        count("svnicp.candidates.target_rows", target.shape[0])
         at_guess = geo.transform_points(r0, t0, source)
         return knn.find_candidate_points(cfg, at_guess, target, src_valid, tgt_valid)
 

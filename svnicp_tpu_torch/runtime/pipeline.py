@@ -172,20 +172,22 @@ def _imu_scan_predict(ekf: eskf_mod.ESKFState, imu: ImuWindow | None, noise,
 def _predict_pose(cfg: PipelineConfig, state: OdometryState, time: torch.Tensor):
     """Initial guess: the ESKF's nav pose in KF mode (ref: ESEKF.cpp:68),
     else constant-velocity extrapolation of the last two poses
-    (ref: OdometryPipeline.cpp:706-737)."""
+    (ref: OdometryPipeline.cpp:706-737), inside the layer span
+    `svnicp.predict`."""
     if cfg.lio.estimator == "kf":
         return state.eskf.nav.r, state.eskf.nav.t
-    rd, td = geo.transform_compose(
-        *geo.transform_inverse(state.prev_r, state.prev_t),
-        state.pose_r, state.pose_t)
-    xi = geo.se3_log(rd, td)
-    dt_hist = state.pose_time - state.prev_time
-    ratio = torch.where(dt_hist > 0,
-                        (time - state.pose_time) / dt_hist.clamp_min(1e-9),
-                        torch.zeros_like(dt_hist))
-    xi = ratio * xi if state.frame_idx >= 2 else torch.zeros_like(xi)
-    ri, ti = geo.se3_exp(xi)
-    return geo.transform_compose(state.pose_r, state.pose_t, ri, ti)
+    with span("svnicp.predict", on=state.pose_t):
+        rd, td = geo.transform_compose(
+            *geo.transform_inverse(state.prev_r, state.prev_t),
+            state.pose_r, state.pose_t)
+        xi = geo.se3_log(rd, td)
+        dt_hist = state.pose_time - state.prev_time
+        ratio = torch.where(dt_hist > 0,
+                            (time - state.pose_time) / dt_hist.clamp_min(1e-9),
+                            torch.zeros_like(dt_hist))
+        xi = ratio * xi if state.frame_idx >= 2 else torch.zeros_like(xi)
+        ri, ti = geo.se3_exp(xi)
+        return geo.transform_compose(state.pose_r, state.pose_t, ri, ti)
 
 
 def _deskew_motion(state: OdometryState) -> torch.Tensor:

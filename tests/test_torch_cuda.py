@@ -977,3 +977,108 @@ def test_float32_free_runs_part_by_rounding_alone(dev, monkeypatch):
           f"{u_line}")
     assert torch.equal(again, pos_o)
     assert rounded > 1e-3
+
+
+# ------------------------------------------- SubT-MRS at its full map (2^20 rows)
+
+FULL = 2**20
+
+
+def test_stage1_kernel_at_the_full_subt_target(dev):
+    """B1 at the SubT-MRS deployment's shapes: 8,192 sources against a
+    2^20-row target (blocks of 128 rows dealt to k=100 groups of 10,496
+    rows, a 16.8 MB prep buffer), a third of the rows invalid, against its
+    plain version on every 16th source. A score |c|^2 - 2 s.c here reaches
+    ~2e4, where float32's unit in the last place is ~2e-3: slots whose
+    runner-up lies within 0.05 of the minimum may pick the other target
+    under the kernel's rounding (fewer than 1% of them), and the squared
+    distance max(best + |s|^2, 0) carries that cancellation (atol 1e-2)."""
+    g = torch.Generator().manual_seed(20)
+    b, k = 8192, 100
+    tgt = (torch.rand((FULL, 3), generator=g) * 120 - 60).to(dev)
+    tv = (torch.rand(FULL, generator=g) < 0.66).to(dev)
+    src = (torch.rand((b, 3), generator=g) * 100 - 50).to(dev)
+    sv = (torch.rand(b, generator=g) < 0.95).to(dev)
+    assert knn.bucket_block_size(FULL, k) == 128
+    cand_k, d2_k = nn.bucketed_candidates(src, tgt, sv, tv, k)
+    torch.cuda.synchronize()
+    rows = torch.arange(0, b, 16, device=dev)
+    cand_p, d2_p = nn.bucketed_candidates_plain(src[rows], tgt, sv[rows], tv, k)
+    fin = torch.isfinite(d2_p)
+    assert torch.equal(torch.isfinite(d2_k[rows]), fin)
+    assert torch.equal(torch.isfinite(d2_k).any(1), sv)
+    score, _ = knn.group_scores(src[rows], tgt, tv, k)
+    two = torch.topk(score, 2, dim=-1, largest=False).values
+    del score
+    keep = fin & (two[..., 1] - two[..., 0] > 0.05)
+    assert int((fin & ~keep).sum()) < 0.01 * int(fin.sum())
+    torch.testing.assert_close(cand_k[rows][keep], cand_p[keep], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(d2_k[rows][keep], d2_p[keep], rtol=1e-4, atol=1e-2)
+
+
+def test_voxmap_on_a_full_table_matches_the_cpu(dev):
+    """`voxmap.insert` and `query_radius` on a 2^20-row map, ~700,000 rows
+    held (as the SubT-MRS live drive's map at its end): the sorts, the
+    int64 run broadcasts and the compaction into a 2^20-row target give
+    the card the CPU's rows, keys and counts exactly (the pose's rotation
+    is the identity, so the transform rounds alike on both)."""
+    from svnicp_tpu_torch.core import voxmap
+    from svnicp_tpu_torch.core.pointcloud import PaddedCloud
+
+    g = torch.Generator().manual_seed(7)
+    held = torch.rand((700_000, 3), generator=g) * torch.tensor([120.0, 120.0, 8.0]) \
+        - torch.tensor([60.0, 60.0, 0.5])
+    scan = torch.rand((16384, 3), generator=g) * 80 - 40
+    scan_valid = torch.rand(16384, generator=g) < 0.9
+    eye = torch.eye(3)
+    pose_t = torch.tensor([1.5, -2.25, 0.125])
+    out = {}
+    for d in ("cpu", dev):
+        vmap = voxmap.create(FULL, device=d)
+        vmap, dropped0 = voxmap.insert(vmap, PaddedCloud(held.to(d), torch.ones(
+            len(held), dtype=torch.bool, device=d)), eye.to(d), torch.zeros(3, device=d),
+            0.2, 1, 100.0)
+        vmap, dropped = voxmap.insert(vmap, PaddedCloud(scan.to(d), scan_valid.to(d)),
+                                      eye.to(d), pose_t.to(d), 0.2, 1, 100.0)
+        target, overflow = voxmap.query_radius(vmap, pose_t.to(d), 70.0, FULL)
+        out[str(d)] = [x.cpu() for x in (*vmap, dropped0, dropped, *target, overflow)]
+    cpu, card = out["cpu"], out[str(dev)]
+    rows = int(cpu[2].sum())
+    assert 600_000 < rows < FULL and int(cpu[4]) == 0 and int(cpu[7]) == 0
+    for a, b_ in zip(cpu, card):
+        assert torch.equal(a, b_)
+
+
+def test_icp_frame_at_full_size_counts_every_stage1_score(dev):
+    """One registered frame of the SubT-MRS deployment as the benchmark
+    runs it (`lio_bench/configs/subt_mrs_fullmap.yaml`): stage 1 scores the
+    8,192-row source against the whole 2^20-row target, padding rows
+    included, and the constant-velocity guess opens its span on the card."""
+    from pathlib import Path
+
+    import yaml
+
+    from svnicp_tpu_torch import config as cfg_mod
+    from svnicp_tpu_torch.io import datasets
+    from svnicp_tpu_torch.runtime import pipeline as pl
+    from svnicp_tpu_torch.runtime import profiling
+
+    path = Path(__file__).resolve().parents[1] / "lio_bench/configs/subt_mrs_fullmap.yaml"
+    cfg = cfg_mod.from_dict(yaml.safe_load(path.read_text())["pipeline"])
+    assert cfg.map.capacity == cfg.icp.target_capacity == FULL
+    world = datasets.SyntheticWorld(extent=60.0, n_walls=14, n_boxes=10, seed=7)
+    times, rots, trans = datasets.synthetic_trajectory(2, dt=0.1, speed=1.5, seed=7)
+    rng = np.random.default_rng(20)
+    pipe = pl.LIOPipeline(cfg, device=dev)
+    with profiling.tracing() as trace:
+        for k in range(2):
+            pipe.feed_scan(float(times[k]), world.scan_at(rng, rots[k], trans[k],
+                                                          n_points=32000, max_range=60.0))
+    pipe.close()
+    assert trace.counters["svnicp.candidates.scores"] == 8192 * FULL
+    assert trace.counters["svnicp.candidates.target_rows"] == FULL
+    predict = trace.named("svnicp.predict")
+    assert len(predict) == 2 and all(s.device_ms is not None for s in predict)
+    out = pipe.outputs[-1]
+    assert out.align_ok and out.icp_iterations >= 1
+    assert int(out.map_dropped) == 0 and int(out.target_overflow) == 0

@@ -13,7 +13,9 @@
   point SVN at a cut size) has each layer span once in every frame, one
   `svnicp.align.iter` and one `svnicp.sync.stop` per iteration, no child
   longer than its parent, and outputs bitwise equal to the same drive
-  untraced.
+  untraced;
+- the ICP estimator's frames each open one `svnicp.predict` (a KF frame
+  none), and stage 1 counts B x Nt scores and Nt target rows a call.
 """
 
 import contextlib
@@ -227,7 +229,16 @@ def test_traced_drive_has_each_layer_span_once_per_frame(runs):
         assert mine.count("svnicp.sync.align_ok") == 2
     assert len(trace.named("svnicp.align.iter")) == sum(iters)
     assert len(trace.named("svnicp.sync.stop")) == sum(iters)
-    assert trace.counters == {"svnicp.imu_samples": IMU_PER_FRAME * (N_FRAMES - 1)}
+    # stage 1 counts B x Nt and Nt per call, from the capacities
+    icp = CFG["icp"]
+    calls = N_FRAMES - 1
+    assert trace.counters == {
+        "svnicp.imu_samples": IMU_PER_FRAME * (N_FRAMES - 1),
+        "svnicp.candidates.scores": calls * icp["source_capacity"] * icp["target_capacity"],
+        "svnicp.candidates.target_rows": calls * icp["target_capacity"]}
+    assert len(trace.named("svnicp.candidates")) == calls
+    # the constant-velocity guess's span is the ICP estimator's alone
+    assert trace.named("svnicp.predict") == []
     for i, s in enumerate(trace.spans):
         kids = [c for c in trace.spans if c.parent == i]
         assert sum(c.ns for c in kids) <= s.ns and s.self_ns >= 0
@@ -238,6 +249,46 @@ def test_traced_drive_has_each_layer_span_once_per_frame(runs):
     stages = trace.named("svnicp.stage")
     assert [s.ns * 1e-9 for s in stages] == [
         ft["preprocessing_time"] for ft in pipe.frame_timings]
+
+
+def test_icp_frame_opens_one_predict_span_and_counts_stage_one():
+    """The ICP estimator's frames (the bootstrap's too) each open one
+    `svnicp.predict` around the constant-velocity guess, under the step's
+    dispatch; each stage-1 call adds B x Nt scores and Nt target rows."""
+    cfg = dict(CFG, lio=dict(estimator="icp", frame_gap_seconds=0.0))
+    pipe, trace = _run(cfg, True)
+    assert len(pipe.outputs) == N_FRAMES and all(o.align_ok for o in pipe.outputs)
+    predict = trace.named("svnicp.predict")
+    assert [s.frame for s in predict] == list(range(N_FRAMES))
+    for s in predict:
+        assert trace.spans[s.parent].name == "svnicp.dispatch"
+        assert s.device_ms is None                      # no card: no events
+    icp = CFG["icp"]
+    cands = trace.named("svnicp.candidates")
+    assert [s.frame for s in cands] == list(range(1, N_FRAMES))
+    assert trace.counters == {
+        "svnicp.candidates.scores": len(cands) * icp["source_capacity"]
+        * icp["target_capacity"],
+        "svnicp.candidates.target_rows": len(cands) * icp["target_capacity"]}
+    assert not trace.named("svnicp.filter.predict") and not trace.named(
+        "svnicp.filter.update")
+
+
+def test_stage_one_counters_follow_each_call_shape():
+    """The counters read the tensors' shapes, call by call."""
+    from svnicp_tpu_torch.core import svn
+
+    icp = cfg_mod.from_dict(CFG).icp
+    eye, zero = torch.eye(3, dtype=torch.float64), torch.zeros(3, dtype=torch.float64)
+    rng = np.random.default_rng(3)
+    with profiling.tracing() as trace:
+        for b, nt in ((40, 300), (17, 1000)):
+            src = torch.from_numpy(rng.normal(size=(b, 3)))
+            tgt = torch.from_numpy(rng.normal(size=(nt, 3)))
+            svn._candidates(icp, src, torch.ones(b, dtype=torch.bool), tgt,
+                            torch.ones(nt, dtype=torch.bool), eye, zero)
+    assert trace.counters == {"svnicp.candidates.scores": 40 * 300 + 17 * 1000,
+                              "svnicp.candidates.target_rows": 1300}
 
 
 def test_traced_drive_outputs_equal_the_untraced_bitwise(runs):
