@@ -91,8 +91,9 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    float32 run (tests/test_torch_loop_reference.py), at least one loop
    closure and one accepted re-anchor and none rejected, a final position
    error below the run without the graph, ATE under LOOP_ATE_LIMIT, and the
-   launches: B1 = frames - 1 + loop verifications, B2 = B3 = odometry
-   iterations + verification iterations (counted by `LoopProbe`, which
+   launches: B1 = frames - 1 + loop verifications, B2 = B3 = the card's
+   align passes over odometry and verification iterations (`card_passes`;
+   the verifications' iterations counted by `LoopProbe`, which
    wraps `PoseGraphDriver`'s methods while installed). It prints the closures,
    the keyframes, frames/s with and without the graph, and the wall time
    of `_update_posegraph` per keyframe, `_verify_loop`, `optimize` and
@@ -149,8 +150,8 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    after one pass that is not recorded, printing its bench JSON line:
    every frame aligned, ATE under max(1.5 x, x + 0.05 m) of the JAX
    package's float32 CPU run of the row (BENCH_JAX_ATE), every pass's
-   launches (B1 = frames - 1; B2 = B3 = iterations on the plane rows, B4
-   = B3 on point-to-point, B5 on SVGD, only B1 on SVD), equal iteration
+   launches (B1 = frames - 1; B2 = B3 = align passes on the plane rows, B4
+   = B3 on point-to-point, B5 an iteration on SVGD, only B1 on SVD), equal iteration
    totals in every sample, and the --batch 4 row's poses equal to the
    default row's bit for bit;
 19. the scaling ladder: `svnicp_tpu_torch.bench_scaling` at its defaults
@@ -1294,9 +1295,9 @@ def check_ptxas(log_by_source: dict) -> None:
 
 def early_stop_cost(cfg, src, sv, tgt, tv, dev) -> float:
     """Cost of the host-side early stop: one registration of the main path's
-    shapes run for 100 iterations with the stop statistic read back every
-    iteration (threshold 0, so it never stops) and with early stop off (no
-    read until the end). Returns the difference per iteration [ms]."""
+    shapes run for 100 iterations with the stop flags read back after every
+    round of passes (threshold 0, so it never stops) and with early stop off
+    (no read until the end). Returns the difference per iteration [ms]."""
     import dataclasses
 
     import torch
@@ -1326,9 +1327,9 @@ def early_stop_cost(cfg, src, sv, tgt, tv, dev) -> float:
                                       convergence_threshold=0.0))
     unchecked = run(dataclasses.replace(cfg.icp, iterations=100, early_stop=False))
     per_iter = (checked - unchecked) / 100
-    print(f"early stop: 100 iterations {checked:.2f} ms with the per-iteration "
-          f"host check, {unchecked:.2f} ms without; {per_iter * 1e3:.1f} us per "
-          f"iteration for the check")
+    print(f"early stop: 100 iterations {checked:.2f} ms with the host's read of "
+          f"the stop flags after each round of {svn.ALIGN_CHUNK}, {unchecked:.2f} ms "
+          f"without; {per_iter * 1e3:.1f} us per iteration for the reads")
     return per_iter
 
 
@@ -1391,6 +1392,17 @@ def read_launches() -> dict:
     launches = {key: _wrapper(key).launches for key in KERNELS}
     assert launches["F1"] == WINDOWS["n"], (launches, WINDOWS)
     return launches
+
+
+def card_passes(iterations) -> int:
+    """The align passes the card runs for registrations of these iteration
+    counts, each a launch of B2 or B4 and of B3: whole rounds of
+    `svn.ALIGN_CHUNK` passes, the frozen ones after the stop included (a
+    degenerate frame's 0 runs none)."""
+    from svnicp_tpu_torch.core import svn
+
+    m = svn.ALIGN_CHUNK
+    return sum(-(-int(i) // m) * m for i in iterations)
 
 
 def feed(pipe, frames, lo: int, hi: int) -> None:
@@ -1527,21 +1539,21 @@ def option_limit(name: str) -> float:
 
 def expected_launches(name: str, cfg, pipe, imu_frames: bool) -> dict:
     """The launches an option's run must make: B1 a frame where stage 1 is
-    the bucketed kernel, B2 and B3 an iteration where SVN runs on the
+    the bucketed kernel, B2 and B3 an align pass (`card_passes`) where SVN runs on the
     kernel route (B2 alone with stein_kernel off or svn_full_grad, every
     epoch with save_particles), none on the XLA route; F1 a frame after
     the bootstrap with the KF estimator and frames that carry IMU samples
     (no option's do)."""
     icp = cfg.icp
     frames = len(pipe.outputs) - 1
-    iters = sum(o.icp_iterations for o in pipe.outputs)
+    passes = card_passes(o.icp_iterations for o in pipe.outputs)
     want = {key: 0 for key in KERNELS}
     if cfg.lio.estimator == "kf" and imu_frames:
         want["F1"] = frames
     if icp.use_pallas and icp.candidate_method == "bucketed":
         want["B1"] = frames
     if icp.method == "svn" and icp.use_pallas:
-        want["B2"] = icp.iterations * frames if cfg.save_particles else iters
+        want["B2"] = icp.iterations * frames if cfg.save_particles else passes
         if icp.stein_kernel and not icp.svn_full_grad:
             want["B3"] = want["B2"]
     return want
@@ -1931,11 +1943,12 @@ def run_loop_phase(dev, smi, table, errs, profile: bool) -> tuple[dict, dict]:
     assert [o.align_ok for o in opipe.outputs] == LOOP_JAX_ALIGN_OK
     assert np.isfinite(traj).all() and np.isfinite(pipe.optimized_trajectory()).all()
     assert launches["B1"] == n - 1 + n_verify, (launches, n_verify)
-    assert launches["B2"] == launches["B3"] == iters + loop_iters, (launches, iters, loop_iters)
+    passes = card_passes(o.icp_iterations for o in outs) + card_passes(probe.loop_iters)
+    assert launches["B2"] == launches["B3"] == passes, (launches, iters, loop_iters)
     assert launches["B4"] == launches["B5"] == 0, launches
     assert launches["F1"] == n - 1, launches
-    oiters = sum(o.icp_iterations for o in opipe.outputs)
-    assert olaunches == dict(B1=n - 1, B2=oiters, B3=oiters, B4=0, B5=0, F1=n - 1), olaunches
+    opasses = card_passes(o.icp_iterations for o in opipe.outputs)
+    assert olaunches == dict(B1=n - 1, B2=opasses, B3=opasses, B4=0, B5=0, F1=n - 1), olaunches
     assert len(pipe.loop_closures) >= 1 and pipe.reanchors >= 1, "the loop did not close"
     assert pipe.reanchors_rejected == 0, pipe.reanchors_rejected
     assert err < oerr, (err, oerr)
@@ -2010,7 +2023,7 @@ def run_batch_phase(cfg, frames, per_frame_pipe, smi) -> dict:
     dispatch_batch=1, alternated, three runs each; each run's launch counts
     set to 0 just before it and read just after. Checked on every run:
     poses and var_icp bit-identical to phase 4's per-frame run, the same
-    iterations per frame, B1 = frames - 1 and B2 = B3 = iterations; for the
+    iterations per frame, B1 = frames - 1 and B2 = B3 = align passes; for the
     batched runs one stacked upload and one packed read-back per batch
     (`packing.copies`); and a HostFrameOutput of a per-frame output on the
     card equal to it field by field. Frames/s over the 20 timed frames, the
@@ -2063,7 +2076,7 @@ def run_batch_phase(cfg, frames, per_frame_pipe, smi) -> dict:
         iters = [o.icp_iterations for o in got]
         assert iters == want_iters, (mode, iters)
         assert launches["B1"] == n - 1, (mode, launches)
-        assert launches["B2"] == launches["B3"] == sum(iters), (mode, launches)
+        assert launches["B2"] == launches["B3"] == card_passes(iters), (mode, launches)
         assert launches["B4"] == launches["B5"] == launches["F1"] == 0, (mode, launches)
         if mode == "batched":
             assert all(isinstance(o, packing.HostFrameOutput) for o in got[1:])
@@ -2236,7 +2249,9 @@ def run_degenerate_phase(cfg_mod, smi) -> dict:
               f"{np.array2string(r, precision=4)} beside float64's "
               f"{np.array2string(r64[kind], precision=4)}; launches {launches}")
         assert launches["B1"] == DEGENERATE_FRAMES - 1, launches
-        assert launches["B2"] == launches["B3"] == iters > 0, (launches, iters)
+        assert iters > 0, iters
+        assert launches["B2"] == launches["B3"] == card_passes(
+            o.icp_iterations for o in pipe.outputs), (launches, iters)
         assert launches["B4"] == launches["B5"] == 0, launches
         assert launches["F1"] == DEGENERATE_FRAMES - 1, launches
         assert np.isfinite(_errors(pipe, trans)).all()
@@ -2490,9 +2505,10 @@ def check_bench_kernels(scans, dev, table, errs) -> None:
 
 def bench_launches_expected(name: str, frames: int, iters: int) -> dict:
     """Phase 18: the launches one pass of a bench row makes: B1 once a
-    frame after the bootstrap; B2 and B3 an iteration on the plane rows,
-    B4 and B3 on the point-to-point row, B5 on the SVGD row, no moments
-    or Stein kernel on the SVD row."""
+    frame after the bootstrap; B2 and B3 an align pass on the plane rows,
+    B4 and B3 on the point-to-point row (`iters` counts the passes the
+    card ran, `card_passes`), B5 an iteration on the SVGD row (`iters`
+    its iterations), no moments or Stein kernel on the SVD row."""
     per_iter = {"point_to_point": ("B4", "B3"), "svgd": ("B5",), "svd": ()}.get(
         name, ("B2", "B3"))
     return {key: (frames - 1 if key == "B1" else iters if key in per_iter else 0)
@@ -2533,7 +2549,11 @@ def run_bench_phase(smi) -> tuple[dict, dict]:
         gt[:, :3, 3] = trans
         trajs[name] = pipe.trajectory()
         ate = metrics.ate_rmse(trajs[name], gt)
-        want = bench_launches_expected(name, n, res.iterations[0])
+        # every sample's frames repeat the last one's iterations (their
+        # totals are asserted equal below)
+        per_pass = (res.iterations[0] if name == "svgd"
+                    else card_passes(o.icp_iterations for o in pipe.outputs))
+        want = bench_launches_expected(name, n, per_pass)
         print(f"bench row {name}: ATE {ate:.4f} m, limit {bench_limit(name):.4f} m (the "
               f"JAX package's float32 run: {BENCH_JAX_ATE[name]:.4f} m); iterations per "
               f"sample {res.iterations} (the JAX run: {BENCH_JAX_ITERS[name]}); "
@@ -2793,7 +2813,8 @@ def main() -> int:
     ate = report_path("main path (configs/tpu_plane.yaml)", pipe, dt, launches,
                       rots, trans, smi, EARLIER_ITERS["main"])
     iters = sum(o.icp_iterations for o in pipe.outputs)
-    assert launches["B2"] == iters == launches["B3"], (launches, iters)
+    passes = card_passes(o.icp_iterations for o in pipe.outputs)
+    assert launches["B2"] == passes == launches["B3"], (launches, iters)
     assert launches["B4"] == launches["B5"] == launches["F1"] == 0, launches
     print_jax_iters("main path", PLANE_JAX_ITERS, pipe)
     print(f"main path: ATE limit {PLANE_ATE_LIMIT:.4f} m (the JAX package's float32 "
@@ -2815,7 +2836,8 @@ def main() -> int:
     print(f"geode path: max |Kalman gain| per frame {[f'{x:.3g}' for x in gains]}; "
           f"ATE limit {GEODE_ATE_LIMIT:.4f} m (the JAX package's float32 run: "
           f"{GEODE_JAX_ATE:.4f} m)")
-    assert glaunches["B4"] == giters == glaunches["B3"], (glaunches, giters)
+    gpasses = card_passes(o.icp_iterations for o in gpipe.outputs)
+    assert glaunches["B4"] == gpasses == glaunches["B3"], (glaunches, giters)
     assert glaunches["B2"] == glaunches["B5"] == 0, glaunches
     # every frame carries IMU samples; the first is the map's bootstrap
     assert glaunches["F1"] == n_frames - 1, glaunches
@@ -2859,7 +2881,8 @@ def main() -> int:
     print(f"features path: max |Kalman gain| per frame {[f'{x:.3g}' for x in fgains]}; "
           f"ATE against the mid-sweep poses, limit {FEATURES_ATE_LIMIT:.4f} m (the JAX "
           f"package's float32 run: {FEATURES_JAX_ATE:.4f} m)")
-    assert flaunches["B2"] == fiters == flaunches["B3"], (flaunches, fiters)
+    fpasses = card_passes(o.icp_iterations for o in fpipe.outputs)
+    assert flaunches["B2"] == fpasses == flaunches["B3"], (flaunches, fiters)
     assert flaunches["B4"] == flaunches["B5"] == 0, flaunches
     assert flaunches["F1"] == n_frames - 1, flaunches
     assert all(x > 0 for x in fgains[1:]), fgains
@@ -2878,7 +2901,8 @@ def main() -> int:
     print(f"subt-fast path: ATE against the mid-sweep poses, limit "
           f"{SUBT_FAST_ATE_LIMIT:.4f} m (the JAX package's float32 run: "
           f"{SUBT_FAST_JAX_ATE:.4f} m)")
-    assert slaunches["B4"] == siters == slaunches["B3"], (slaunches, siters)
+    spasses = card_passes(o.icp_iterations for o in spipe.outputs)
+    assert slaunches["B4"] == spasses == slaunches["B3"], (slaunches, siters)
     assert slaunches["B2"] == slaunches["B5"] == slaunches["F1"] == 0, slaunches
     assert sate < SUBT_FAST_ATE_LIMIT, (sate, SUBT_FAST_ATE_LIMIT)
     if args.profile:

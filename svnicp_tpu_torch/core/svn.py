@@ -19,15 +19,20 @@ For CPU tensors the kernel wrappers run their plain versions, in float32
 or float64. `match_count` keeps the nearest-at-guess candidates of each
 point after the plane fit on the full set.
 
-Early stop: JAX stops inside a device `while_loop`. Here the host reads the
-stop statistic after every iteration (one device sync per iteration) and
-stops when it drops below the threshold, which
-gives the same `AlignResult.iterations`: the loop runs while not done and
-fewer than `cfg.iterations` have run, and a degenerate correspondence set
-(fewer than 6 source points with any candidate) skips the loop with
-grad_norm = +inf, which the pipeline reads as a failed alignment.
-`align_with_history` runs every epoch with the updates frozen on the device
-after convergence, and reads the host once.
+Early stop: JAX stops inside a device `while_loop`. Here the loop runs in
+rounds of m passes (`ALIGN_CHUNK` on the card, 1 on the CPU), each pass's
+update kept or dropped on the device: kept while the loop has not
+converged and fewer than `cfg.iterations` passes were kept. After each
+round the host reads (done, it) once and stops when the loop converged or
+reached the cap, which gives the same `AlignResult.iterations` and
+particles as a read after every pass. On the card's kernel route with B3
+(P > 1) a round is one CUDA graph of its m passes, captured once per
+configuration and shapes (`core/cuda_graph.py`), so the host issues one
+launch a round in place of each pass's operations. A degenerate
+correspondence set (fewer than 6 source points with any candidate) skips
+the loop with grad_norm = +inf, which the pipeline reads as a failed
+alignment. `align_with_history` runs every epoch with the updates frozen
+on the device after convergence, and reads the host once.
 
 Reference quirks kept (see the JAX module): the correspondence gate compares
 the SQUARED distance against the unsquared max_dist, point-to-point pairs
@@ -42,12 +47,18 @@ from typing import NamedTuple
 import torch
 
 from svnicp_tpu_torch.config import SteinICPConfig
+from svnicp_tpu_torch.core import cuda_graph
 from svnicp_tpu_torch.core import geometry as geo
 from svnicp_tpu_torch.core import residuals
 from svnicp_tpu_torch.kernels import knn, nn, stein
 from svnicp_tpu_torch.runtime.profiling import count, span
 
 MIN_CONSTRAINT_POINTS = 6   # a 6-DoF system needs >= 6 constrained points
+# passes a round of the align loop runs on the card before the host reads
+# its stop flags: a frozen pass after the stop costs the card ~35-65 us,
+# a read ~30-50 us of the host's wait; chosen by
+# tools/torch_align_chunk_sweep.py (PERF.md, Findings)
+ALIGN_CHUNK = 10
 
 
 class AlignResult(NamedTuple):
@@ -335,30 +346,124 @@ def _start(cfg: SteinICPConfig, source, src_valid, cand_pts, cand_valid, r0,
     return r, t, False, prep, prior
 
 
+def _chunk(device: torch.device) -> int:
+    """Passes a round: ALIGN_CHUNK on the card, where a read waits for the
+    device; 1 on the CPU, where a read costs nothing and a frozen pass
+    would."""
+    return ALIGN_CHUNK if device.type == "cuda" else 1
+
+
+def _frozen_passes(cfg: SteinICPConfig, m: int, prep: AlignPrep, source,
+                   src_valid, prior, r0, t0, r, t, grad_norm, done, it):
+    """m passes of the align loop, each kept only while the loop runs (not
+    done, and fewer than cfg.iterations passes kept); a dropped pass leaves
+    the state as it was -> (r, t, grad_norm, done, it)."""
+    for _ in range(m):
+        r_new, t_new, g, stop = _svn_iteration(cfg, prep, source, src_valid,
+                                               prior, r0, t0, r, t)
+        keep = ~done & (it < cfg.iterations)
+        r = torch.where(keep, r_new, r)
+        t = torch.where(keep, t_new, t)
+        grad_norm = torch.where(keep, g, grad_norm)
+        it = it + keep
+        if cfg.early_stop:
+            # in float64: float32 would round the threshold (a Python float)
+            done = done | (keep & (stop.double() < cfg.convergence_threshold))
+    return r, t, grad_norm, done, it
+
+
+def _stop_flags(state) -> torch.Tensor:
+    """(done, it) of a loop state, packed for one read."""
+    return torch.stack([state[3].to(state[4].dtype), state[4]])
+
+
+def _graphed(cfg: SteinICPConfig, prep: AlignPrep, source, particles: int) -> bool:
+    """Whether a round runs as a CUDA graph: on the card's kernel route with
+    B3, outside any other capture."""
+    return (source.is_cuda and prep.kernel is not None and cfg.stein_kernel
+            and not cfg.svn_full_grad and particles > 1
+            and not torch.cuda.is_current_stream_capturing())
+
+
+# the kernel wrappers a round launches, whose counts a replay advances
+_ROUND_KERNELS = (nn.plane_moments, nn.point_moments, stein.stein_update)
+
+
+def _graph_round(cfg: SteinICPConfig, m: int, prep: AlignPrep, source,
+                 src_valid, prior, r0, t0, state):
+    """The round's m passes as one CUDA graph, captured at the first frame
+    of each configuration and shapes; this frame's loop-invariant operands
+    (the kernel's prep, source, r0, t0, B3's prior) and initial state are
+    copied into its static inputs -> a function that runs one round and
+    returns (the state, held in the graph's buffers, and its packed stop
+    flags). The captured pass is the module's `_svn_iteration` of the
+    moment, which the key names."""
+    kernel = prep.kernel
+    inputs = [source, src_valid, r0, t0, *state, *kernel]
+    inputs += [] if prior is None else [prior]
+
+    def passes(source, src_valid, r0, t0, r, t, grad_norm, done, it, *rest):
+        # the static copies; the other fields of the prep are not read here
+        kprep = AlignPrep(None, None, None, None, None,
+                          type(kernel)(*rest[:len(kernel)]))
+        out = _frozen_passes(cfg, m, kprep, source, src_valid,
+                             rest[len(kernel)] if prior is not None else None,
+                             r0, t0, r, t, grad_norm, done, it)
+        for buf, v in zip((r, t, grad_norm, done, it), out):
+            buf.copy_(v)
+        return [_stop_flags(out)]
+
+    entry, new = cuda_graph.capture(
+        ("svnicp.align", cfg, m, _svn_iteration, type(kernel)), passes, *inputs,
+        counted=_ROUND_KERNELS)
+    if new:
+        count("svnicp.align.graph_captures")
+    for s, a in zip(entry.static, inputs):
+        s.copy_(a)
+    bufs = tuple(entry.static[4:9])
+
+    def run():
+        cuda_graph.launch(entry)
+        count("svnicp.align.graph_replays")
+        return bufs, entry.out[0]
+    return run
+
+
 def align(cfg: SteinICPConfig, source, src_valid, cand_pts, cand_valid, r0, t0,
           init_particles) -> AlignResult:
     """Run the SVN ensemble to convergence from `init_particles` [P,6]
     ([t, w] local corrections around the guess (r0, t0)) and return the
     local correction distribution (ref: SVNICP.cpp:41-114). Spans: the
-    whole call, each pass of the loop, and inside it the read of the stop
-    statistic."""
+    whole call, each round of the loop (m passes), and inside it the
+    round's read of the stop flags."""
     with span("svnicp.align", on=source):
         r, t, degenerate, prep, prior = _start(cfg, source, src_valid, cand_pts,
                                                cand_valid, r0, t0, init_particles)
         if degenerate:
             return ensemble_result(r, t, 0, float("inf"))
+        dev, m = source.device, _chunk(source.device)
+        state = (r, t, torch.full((), float("inf"), dtype=source.dtype, device=dev),
+                 torch.zeros((), dtype=torch.bool, device=dev),
+                 torch.zeros((), dtype=torch.int64, device=dev))
+        graph = None
+        if _graphed(cfg, prep, source, r.shape[0]):
+            graph = _graph_round(cfg, m, prep, source, src_valid, prior, r0, t0, state)
         it, done = 0, False
-        grad_norm = torch.tensor(float("inf"), dtype=source.dtype,
-                                 device=source.device)
         while not done and it < cfg.iterations:
             with span("svnicp.align.iter"):
-                r, t, grad_norm, stop = _svn_iteration(cfg, prep, source, src_valid,
-                                                       prior, r0, t0, r, t)
-                it += 1
+                if graph is not None:
+                    state, flags = graph()
+                else:
+                    state = _frozen_passes(cfg, m, prep, source, src_valid, prior,
+                                           r0, t0, *state)
+                    flags = _stop_flags(state) if cfg.early_stop else None
+                    count("svnicp.align.eager_rounds")
+                it = min(it + m, cfg.iterations)
                 if cfg.early_stop:
                     with span("svnicp.sync.stop"):
-                        done = float(stop) < cfg.convergence_threshold
-        return ensemble_result(r, t, it, grad_norm)
+                        done, it = flags.tolist()
+        r, t, grad_norm = state[:3]
+        return ensemble_result(r, t, it, grad_norm.clone())
 
 
 def align_with_history(cfg: SteinICPConfig, source, src_valid, cand_pts,

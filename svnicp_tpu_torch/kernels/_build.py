@@ -117,13 +117,13 @@ def build_all() -> dict[str, ctypes.CDLL]:
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches`. The shards of an in-process mesh run
-    on threads of their own; the mesh's baton lets one run at a time, and
-    the lock keeps the count exact should a caller launch from threads of
-    its own."""
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add n (one launch by default) to `wrapper.launches`. The shards of an
+    in-process mesh run on threads of their own; the mesh's baton lets one
+    run at a time, and the lock keeps the count exact should a caller launch
+    from threads of its own."""
     with _count_lock:
-        wrapper.launches += 1
+        wrapper.launches += n
 
 
 def library(src: str) -> ctypes.CDLL:

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from svnicp_tpu_torch.config import SteinICPConfig
 from svnicp_tpu_torch.core import geometry as geo
 from svnicp_tpu_torch.core import svn
 from svnicp_tpu_torch.kernels import knn, nn, stein
@@ -407,6 +408,98 @@ def test_cuda_graph_replays_on_new_inputs(dev):
         assert torch.equal(a, want_a) and torch.equal(s, want_s)
 
 
+# ------------------------------------------------ the align loop as a CUDA graph
+
+# GEODE-Alpha's and SubT-MRS's registration shapes: (P, B, K before the
+# padding to 104, cap, stop threshold)
+ALIGN_SHAPES = {"geode": (10, 4096, 100, 60, 5e-4), "subt": (30, 8192, 100, 100, 1e-4)}
+
+
+def _align_frame(dev, p, b, k, seed):
+    """One frame's align operands: b source points, each with k candidates
+    around its place under a small pose (a tenth of them invalid), the
+    identity guess and a particle draw in the prior box."""
+    g = torch.Generator().manual_seed(seed)
+    src = torch.randn((b, 3), generator=g) * 8.0
+    xi = (torch.rand(6, generator=g) - 0.5) * torch.tensor([0.2, 0.2, 0.1, 0.01, 0.01, 0.02])
+    r, t = geo.se3_exp(xi)
+    cand = (src @ r.T + t)[:, None, :] + 0.05 * torch.randn((b, k, 3), generator=g)
+    cand_valid = torch.rand((b, k), generator=g) > 0.1
+    src_valid = torch.rand(b, generator=g) > 0.05
+    lb, ub = torch.tensor(SteinICPConfig().init_lb), torch.tensor(SteinICPConfig().init_ub)
+    init = lb + (ub - lb) * torch.rand((p, 6), generator=g)
+    return [x.to(dev) for x in (src, src_valid, cand, cand_valid, torch.eye(3),
+                                torch.zeros(3), init)]
+
+
+def _align_cfg(p, k, cap, thr, **kw):
+    return SteinICPConfig(particle_count=p, iterations=cap, knn_count=k,
+                              max_dist=3.0, use_pallas=True, convergence_threshold=thr,
+                              **kw)
+
+
+@pytest.mark.parametrize("shape", list(ALIGN_SHAPES))
+def test_align_graph_equals_the_uncaptured_rounds(dev, shape, monkeypatch):
+    """At GEODE's and SubT's shapes, over several frames of new operands,
+    the rounds replayed from the CUDA graph give the AlignResult of the
+    same rounds issued op by op, bit for bit; one capture per shape, and
+    B4's and B3's launch counts advance by ALIGN_CHUNK a replay."""
+    from svnicp_tpu_torch.runtime import profiling
+
+    p, b, k, cap, thr = ALIGN_SHAPES[shape]
+    # a threshold of this test's own, so the capture is this test's
+    cfg = _align_cfg(p, k, cap, thr * (1 + 1e-9))
+    frames = [_align_frame(dev, p, b, k, seed) for seed in range(3)]
+    eager = []
+    with monkeypatch.context() as mp:
+        mp.setattr(svn, "_graphed", lambda *a: False)
+        for f in frames:
+            eager.append(svn.align(cfg, *f))
+    wrappers = (nn.point_moments, stein.stein_update, nn.plane_moments)
+    with profiling.tracing() as tr:
+        graphed = [svn.align(cfg, *f) for f in frames[:1]]
+        before = [w.launches for w in wrappers]
+        graphed += [svn.align(cfg, *f) for f in frames[1:]]
+        torch.cuda.synchronize()
+        made = [w.launches - x for w, x in zip(wrappers, before)]
+    assert tr.counters.get("svnicp.align.graph_captures") == 1, tr.counters
+    rounds = tr.counters["svnicp.align.graph_replays"]
+    assert rounds == len(tr.named("svnicp.align.iter"))
+    later = sum(-(-res.iterations // svn.ALIGN_CHUNK) for res in graphed[1:])
+    assert made == [later * svn.ALIGN_CHUNK] * 2 + [0], (made, later)
+    for want, got in zip(eager, graphed):
+        assert got.iterations == want.iterations and 0 < got.iterations <= cap
+        for name in ("particles", "mean", "var", "cov", "grad_norm"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+    # a changed shape captures a graph of its own
+    with profiling.tracing() as tr:
+        svn.align(cfg, *_align_frame(dev, p, b // 2, k, 7))
+    assert tr.counters.get("svnicp.align.graph_captures") == 1, tr.counters
+
+
+def test_align_graph_replays_a_fault_planted_before_it(dev, monkeypatch):
+    """lio_bench's `state_unchanged` fault, planted before the first frame,
+    is the pass that gets captured: the particles stay at the draw and the
+    loop stops after one pass, with no moments launch."""
+    from lio_bench.harness import faults
+    from svnicp_tpu_torch.runtime import profiling
+
+    p, b, k, cap, thr = ALIGN_SHAPES["geode"]
+    cfg = _align_cfg(p, k, cap, thr * (1 + 2e-9))
+    faults.state_unchanged(monkeypatch.setattr)
+    before = nn.point_moments.launches
+    with profiling.tracing() as tr:
+        for seed in range(2):
+            f = _align_frame(dev, p, b, k, seed)
+            res = svn.align(cfg, *f)
+            want = svn.particle_coords(geo.so3_exp(f[-1][:, 3:]), f[-1][:, :3])
+            assert res.iterations == 1 and float(res.grad_norm) == 0.0
+            assert torch.equal(res.particles, want)
+    assert tr.counters.get("svnicp.align.graph_captures") == 1, tr.counters
+    assert tr.counters.get("svnicp.align.graph_replays") == 2, tr.counters
+    assert nn.point_moments.launches == before
+
+
 # ------------------------------------------------ the XLA route on the card
 
 def test_voxel_keys_on_the_card_equal_the_cpu(dev):
@@ -555,7 +648,9 @@ def test_xla_route_launches_no_kernel(dev):
         torch.cuda.synchronize()
         made = [w.launches - b for w, b in zip(wrappers, before)]
         if use_pallas:
-            assert made == [1, res.iterations, 0, 0, res.iterations], made
+            # whole rounds of ALIGN_CHUNK passes, frozen ones included
+            passes = -(-res.iterations // svn.ALIGN_CHUNK) * svn.ALIGN_CHUNK
+            assert made == [1, passes, 0, 0, passes], made
         else:
             assert made == [0] * 5, made
 

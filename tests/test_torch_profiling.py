@@ -232,10 +232,12 @@ def test_traced_drive_has_each_layer_span_once_per_frame(runs):
     # stage 1 counts B x Nt and Nt per call, from the capacities
     icp = CFG["icp"]
     calls = N_FRAMES - 1
+    # the CPU's align rounds are one pass each, issued op by op
     assert trace.counters == {
         "svnicp.imu_samples": IMU_PER_FRAME * (N_FRAMES - 1),
         "svnicp.candidates.scores": calls * icp["source_capacity"] * icp["target_capacity"],
-        "svnicp.candidates.target_rows": calls * icp["target_capacity"]}
+        "svnicp.candidates.target_rows": calls * icp["target_capacity"],
+        "svnicp.align.eager_rounds": sum(iters)}
     assert len(trace.named("svnicp.candidates")) == calls
     # the constant-velocity guess's span is the ICP estimator's alone
     assert trace.named("svnicp.predict") == []
@@ -269,7 +271,8 @@ def test_icp_frame_opens_one_predict_span_and_counts_stage_one():
     assert trace.counters == {
         "svnicp.candidates.scores": len(cands) * icp["source_capacity"]
         * icp["target_capacity"],
-        "svnicp.candidates.target_rows": len(cands) * icp["target_capacity"]}
+        "svnicp.candidates.target_rows": len(cands) * icp["target_capacity"],
+        "svnicp.align.eager_rounds": sum(o.icp_iterations for o in pipe.outputs)}
     assert not trace.named("svnicp.filter.predict") and not trace.named(
         "svnicp.filter.update")
 
