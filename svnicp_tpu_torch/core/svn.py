@@ -19,20 +19,21 @@ For CPU tensors the kernel wrappers run their plain versions, in float32
 or float64. `match_count` keeps the nearest-at-guess candidates of each
 point after the plane fit on the full set.
 
-Early stop: JAX stops inside a device `while_loop`. Here the loop runs in
-rounds of m passes (`ALIGN_CHUNK` on the card, 1 on the CPU), each pass's
-update kept or dropped on the device: kept while the loop has not
-converged and fewer than `cfg.iterations` passes were kept. After each
-round the host reads (done, it) once and stops when the loop converged or
-reached the cap, which gives the same `AlignResult.iterations` and
-particles as a read after every pass. On the card's kernel route with B3
-(P > 1) a round is one CUDA graph of its m passes, captured once per
+Early stop: JAX stops inside a device `while_loop`. Here one driver,
+`align_loop`, runs every SVN loop (the mesh's too) in rounds of m passes,
+each pass's update kept or dropped on the device: kept while the loop has
+not converged (the statistic compared in float64) and fewer than
+`cfg.iterations` passes were kept. After each round the host reads (done,
+it) once and stops when the loop converged or reached the cap, which
+gives the same result as a read after every pass. m is `ALIGN_CHUNK` on
+the card and 1 on the CPU and on a mesh; `align_with_history` runs one
+round of every pass. On the card's kernel route with B3 (P > 1) a round
+of `align` is one CUDA graph of its m passes, captured once per
 configuration and shapes (`core/cuda_graph.py`), so the host issues one
 launch a round in place of each pass's operations. A degenerate
 correspondence set (fewer than 6 source points with any candidate) skips
 the loop with grad_norm = +inf, which the pipeline reads as a failed
-alignment. `align_with_history` runs every epoch with the updates frozen
-on the device after convergence, and reads the host once.
+alignment.
 
 Reference quirks kept (see the JAX module): the correspondence gate compares
 the SQUARED distance against the unsquared max_dist, point-to-point pairs
@@ -353,14 +354,30 @@ def _chunk(device: torch.device) -> int:
     return ALIGN_CHUNK if device.type == "cuda" else 1
 
 
-def _frozen_passes(cfg: SteinICPConfig, m: int, prep: AlignPrep, source,
-                   src_valid, prior, r0, t0, r, t, grad_norm, done, it):
-    """m passes of the align loop, each kept only while the loop runs (not
-    done, and fewer than cfg.iterations passes kept); a dropped pass leaves
-    the state as it was -> (r, t, grad_norm, done, it)."""
+def _step(cfg: SteinICPConfig, prep: AlignPrep, source, src_valid, prior, r0, t0):
+    """The frame's SVN pass as `step(r, t) -> (r, t, grad_norm, stop
+    statistic)`; it calls the module's `_svn_iteration` of the moment."""
+    return lambda r, t: _svn_iteration(cfg, prep, source, src_valid, prior,
+                                       r0, t0, r, t)
+
+
+def loop_state(r, t) -> tuple:
+    """The align loop's state before its first pass: (r, t, grad_norm =
+    +inf, done = False, passes kept = 0)."""
+    dev = t.device
+    return (r, t, torch.full((), float("inf"), dtype=t.dtype, device=dev),
+            torch.zeros((), dtype=torch.bool, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _frozen_passes(cfg: SteinICPConfig, m: int, step, r, t, grad_norm, done, it,
+                   record=None):
+    """m passes of `step`, each kept only while the loop runs (not done,
+    and fewer than cfg.iterations passes kept); a dropped pass leaves the
+    state as it was. `record(r, t)` is called after every pass -> (r, t,
+    grad_norm, done, it)."""
     for _ in range(m):
-        r_new, t_new, g, stop = _svn_iteration(cfg, prep, source, src_valid,
-                                               prior, r0, t0, r, t)
+        r_new, t_new, g, stop = step(r, t)
         keep = ~done & (it < cfg.iterations)
         r = torch.where(keep, r_new, r)
         t = torch.where(keep, t_new, t)
@@ -369,12 +386,38 @@ def _frozen_passes(cfg: SteinICPConfig, m: int, prep: AlignPrep, source,
         if cfg.early_stop:
             # in float64: float32 would round the threshold (a Python float)
             done = done | (keep & (stop.double() < cfg.convergence_threshold))
+        if record is not None:
+            record(r, t)
     return r, t, grad_norm, done, it
 
 
 def _stop_flags(state) -> torch.Tensor:
     """(done, it) of a loop state, packed for one read."""
     return torch.stack([state[3].to(state[4].dtype), state[4]])
+
+
+def align_loop(cfg: SteinICPConfig, m: int, step, state, graph=None, record=None):
+    """The driver of every SVN align loop, on one device or on a mesh shard:
+    rounds of m `_frozen_passes` of `step` from `state` (`loop_state`), or
+    of the `graph`'s replays (`_graph_round`), until the loop converged or
+    kept cfg.iterations passes, with one read of the stop flags a round;
+    `record` as in `_frozen_passes` -> (r, t, grad_norm, iterations as an
+    int). Spans: each round, and inside it the round's read of the stop
+    flags."""
+    it, done = 0, False
+    while not done and it < cfg.iterations:
+        with span("svnicp.align.iter"):
+            if graph is not None:
+                state, flags = graph()
+            else:
+                state = _frozen_passes(cfg, m, step, *state, record=record)
+                flags = _stop_flags(state) if cfg.early_stop else None
+                count("svnicp.align.eager_rounds")
+            it = min(it + m, cfg.iterations)
+            if cfg.early_stop:
+                with span("svnicp.sync.stop"):
+                    done, it = flags.tolist()
+    return (*state[:3], it)
 
 
 def _graphed(cfg: SteinICPConfig, prep: AlignPrep, source, particles: int) -> bool:
@@ -406,9 +449,9 @@ def _graph_round(cfg: SteinICPConfig, m: int, prep: AlignPrep, source,
         # the static copies; the other fields of the prep are not read here
         kprep = AlignPrep(None, None, None, None, None,
                           type(kernel)(*rest[:len(kernel)]))
-        out = _frozen_passes(cfg, m, kprep, source, src_valid,
-                             rest[len(kernel)] if prior is not None else None,
-                             r0, t0, r, t, grad_norm, done, it)
+        step = _step(cfg, kprep, source, src_valid,
+                     rest[len(kernel)] if prior is not None else None, r0, t0)
+        out = _frozen_passes(cfg, m, step, r, t, grad_norm, done, it)
         for buf, v in zip((r, t, grad_norm, done, it), out):
             buf.copy_(v)
         return [_stop_flags(out)]
@@ -434,35 +477,18 @@ def align(cfg: SteinICPConfig, source, src_valid, cand_pts, cand_valid, r0, t0,
     """Run the SVN ensemble to convergence from `init_particles` [P,6]
     ([t, w] local corrections around the guess (r0, t0)) and return the
     local correction distribution (ref: SVNICP.cpp:41-114). Spans: the
-    whole call, each round of the loop (m passes), and inside it the
-    round's read of the stop flags."""
+    whole call, and the loop's (`align_loop`)."""
     with span("svnicp.align", on=source):
         r, t, degenerate, prep, prior = _start(cfg, source, src_valid, cand_pts,
                                                cand_valid, r0, t0, init_particles)
         if degenerate:
             return ensemble_result(r, t, 0, float("inf"))
-        dev, m = source.device, _chunk(source.device)
-        state = (r, t, torch.full((), float("inf"), dtype=source.dtype, device=dev),
-                 torch.zeros((), dtype=torch.bool, device=dev),
-                 torch.zeros((), dtype=torch.int64, device=dev))
+        m, state = _chunk(source.device), loop_state(r, t)
         graph = None
         if _graphed(cfg, prep, source, r.shape[0]):
             graph = _graph_round(cfg, m, prep, source, src_valid, prior, r0, t0, state)
-        it, done = 0, False
-        while not done and it < cfg.iterations:
-            with span("svnicp.align.iter"):
-                if graph is not None:
-                    state, flags = graph()
-                else:
-                    state = _frozen_passes(cfg, m, prep, source, src_valid, prior,
-                                           r0, t0, *state)
-                    flags = _stop_flags(state) if cfg.early_stop else None
-                    count("svnicp.align.eager_rounds")
-                it = min(it + m, cfg.iterations)
-                if cfg.early_stop:
-                    with span("svnicp.sync.stop"):
-                        done, it = flags.tolist()
-        r, t, grad_norm = state[:3]
+        r, t, grad_norm, it = align_loop(
+            cfg, m, _step(cfg, prep, source, src_valid, prior, r0, t0), state, graph)
         return ensemble_result(r, t, it, grad_norm.clone())
 
 
@@ -471,31 +497,19 @@ def align_with_history(cfg: SteinICPConfig, source, src_valid, cand_pts,
                        ) -> tuple[AlignResult, torch.Tensor]:
     """`align` that also returns the particle stack [iterations,P,6] after
     every epoch (ref: particle_stack_ logging, SVNICP.cpp:103-107). It runs
-    all `cfg.iterations` epochs; after convergence the updates are frozen
-    on the device, so later rows repeat the final particles."""
+    one round of all `cfg.iterations` epochs, frozen on the device after
+    convergence, so later rows repeat the final particles."""
     r, t, degenerate, prep, prior = _start(cfg, source, src_valid, cand_pts,
                                            cand_valid, r0, t0, init_particles)
     if degenerate:
         coords = particle_coords(r, t)
         return (ensemble_result(r, t, 0, float("inf")),
                 coords.expand(cfg.iterations, -1, -1).clone())
-    dev = source.device
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    it = torch.zeros((), dtype=torch.int64, device=dev)
-    grad_norm = torch.tensor(float("inf"), dtype=source.dtype, device=dev)
     history = []
-    for _ in range(cfg.iterations):
-        r_new, t_new, g, stop = _svn_iteration(cfg, prep, source, src_valid,
-                                               prior, r0, t0, r, t)
-        keep = ~done
-        r = torch.where(keep, r_new, r)
-        t = torch.where(keep, t_new, t)
-        it = it + keep.to(it.dtype)
-        grad_norm = torch.where(keep, g, grad_norm)
-        if cfg.early_stop:
-            done = done | (stop < cfg.convergence_threshold)
-        history.append(particle_coords(r, t))
-    return ensemble_result(r, t, int(it), grad_norm), torch.stack(history)
+    r, t, grad_norm, it = align_loop(
+        cfg, cfg.iterations, _step(cfg, prep, source, src_valid, prior, r0, t0),
+        loop_state(r, t), record=lambda r, t: history.append(particle_coords(r, t)))
+    return ensemble_result(r, t, it, grad_norm), torch.stack(history)
 
 
 def _candidates(cfg: SteinICPConfig, source, src_valid, target, tgt_valid, r0, t0):

@@ -12,9 +12,10 @@ collectives object of `parallel/mesh.py` (in one process or over
 - the Stein coupling gathers the [P,6] coordinates and the [P,6] Newton
   directions (or, with svn_full_grad, the [P,6,6] Hessians and [P,6]
   gradients) over the particle axis and computes its own kernel rows;
-- the stop statistic is a particle-axis pmean, read on the host after
-  every iteration (as `core/svn.py` reads it) and identical on every
-  shard, so all leave the loop on the same iteration.
+- the stop statistic is a particle-axis pmean, identical on every shard,
+  and the loop is `core/svn.py`'s driver with one pass a round: the host
+  reads the stop flags after every pass, and all shards leave the loop on
+  the same pass.
 
 Routes, copied from the JAX package as they are: stage 1 runs by index on
 each point shard (`knn.find_candidates`, never kernel B1); the Newton
@@ -69,13 +70,6 @@ def auto_axes(n_devices: int, particle_count: int) -> tuple[int, int]:
     return particle, n_devices // particle
 
 
-def _degenerate_global(coll, src_valid_l, cand_valid_l) -> bool:
-    """svn's degeneracy test over the point shards: the valid pair count
-    is summed, so every shard skips the loop alike."""
-    n = coll.psum(int(svn.valid_pair_count(src_valid_l, cand_valid_l)), POINT_AXIS)
-    return n < svn.MIN_CONSTRAINT_POINTS
-
-
 def _sharded_iteration(coll, cfg: SteinICPConfig, source, src_valid,
                        prep: svn.AlignPrep, r0, t0, r, t):
     """One SVN epoch on a (particle, point) shard: source/prep are the
@@ -123,51 +117,6 @@ def _sharded_iteration(coll, cfg: SteinICPConfig, source, src_valid,
     else:
         stop = grad_norm
     return r_new, t_new, grad_norm, stop
-
-
-def run_align_loop(coll, cfg: SteinICPConfig, iter_fn, r, t, degenerate: bool,
-                   history: bool):
-    """The shard-local align loop shared by every sharded body ->
-    (r, t, iterations, grad_norm, history or None).
-
-    history=False: the early-stopping loop, the stop statistic read on the
-    host after every iteration. history=True: all cfg.iterations epochs
-    with the updates frozen after convergence, each emitting the FULL
-    particle coordinates by a particle-axis all_gather, so the [iters,P,6]
-    stack is the single-device history contract on every shard. A
-    degenerate correspondence set (the same on every shard) runs no epoch,
-    and its history repeats the initial particles, as the JAX package's
-    frozen scan does."""
-    dtype, dev = t.dtype, t.device
-    if not history:
-        it = 0
-        grad_norm = torch.tensor(float("inf"), dtype=dtype, device=dev)
-        while not degenerate and it < cfg.iterations:
-            r, t, grad_norm, stop = iter_fn(r, t)
-            it += 1
-            if cfg.early_stop and float(stop) < cfg.convergence_threshold:
-                break
-        return r, t, it, grad_norm, None
-    if degenerate:
-        coords = coll.all_gather(svn.particle_coords(r, t), PARTICLE_AXIS, tiled=True)
-        return (r, t, 0, torch.tensor(float("inf"), dtype=dtype, device=dev),
-                coords.expand(cfg.iterations, -1, -1).clone())
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    it = torch.zeros((), dtype=torch.int64, device=dev)
-    grad_norm = torch.tensor(float("inf"), dtype=dtype, device=dev)
-    hist = []
-    for _ in range(cfg.iterations):
-        r_new, t_new, g, stop = iter_fn(r, t)
-        keep = ~done
-        r = torch.where(keep, r_new, r)
-        t = torch.where(keep, t_new, t)
-        it = it + keep.to(it.dtype)
-        grad_norm = torch.where(keep, g, grad_norm)
-        if cfg.early_stop:
-            done = done | (stop < cfg.convergence_threshold)
-        hist.append(coll.all_gather(svn.particle_coords(r, t), PARTICLE_AXIS,
-                                    tiled=True))
-    return r, t, int(it), grad_norm, torch.stack(hist)
 
 
 def ensemble_outputs(coll, r, t, it: int, grad_norm, hist) -> tuple:
@@ -218,21 +167,39 @@ def shard_prep(cfg: SteinICPConfig, source_l, src_valid_l, cand_l, cand_valid_l
     return svn.AlignPrep(cand_l, cand_valid_l, normals, feat, bias, kernel)
 
 
-def _align_shard(coll, cfg: SteinICPConfig, source_l, src_valid_l, cand_l,
-                 cand_valid_l, r0, t0, init_l, history: bool) -> tuple:
-    """`sharded_align`'s body: the shard's operands, the loop and the
-    replicated statistics."""
+def _align_shard(coll, cfg: SteinICPConfig, source_l, src_valid_l,
+                 prep: svn.AlignPrep, r0, t0, init_l, history: bool) -> tuple:
+    """Every sharded body's align loop, on its shard's operands `prep`:
+    svn's driver (`svn.align_loop`) with `_sharded_iteration` as the pass,
+    then the replicated statistics. Without history one pass a round (a
+    mesh pass is collectives the host waits for, so a frozen pass would
+    cost it what a live one does); with history one round of every pass,
+    each recording the FULL particles by a particle-axis all_gather, the
+    single-device history on every shard. A degenerate set (the same on
+    every shard) runs no pass, and its history repeats the initial
+    particles, as the JAX package's frozen scan does."""
     r = geo.so3_exp(init_l[:, 3:])
     t = init_l[:, :3].contiguous()
-    prep = shard_prep(cfg, source_l, src_valid_l, cand_l, cand_valid_l)
-    cand_valid_l = prep.cand_valid
 
-    def iter_fn(r_, t_):
+    def gathered(r_, t_):
+        return coll.all_gather(svn.particle_coords(r_, t_), PARTICLE_AXIS, tiled=True)
+
+    def step(r_, t_):
         return _sharded_iteration(coll, cfg, source_l, src_valid_l, prep, r0, t0, r_, t_)
 
-    degenerate = _degenerate_global(coll, src_valid_l, cand_valid_l)
-    r, t, it, gn, hist = run_align_loop(coll, cfg, iter_fn, r, t, degenerate, history)
-    return ensemble_outputs(coll, r, t, it, gn, hist)
+    state = svn.loop_state(r, t)
+    # svn's degeneracy test on the pair count summed over the point shards
+    pairs = coll.psum(int(svn.valid_pair_count(src_valid_l, prep.cand_valid)), POINT_AXIS)
+    if pairs < svn.MIN_CONSTRAINT_POINTS:
+        hist = gathered(r, t).expand(cfg.iterations, -1, -1).clone() if history else None
+        return ensemble_outputs(coll, r, t, 0, state[2], hist)   # grad_norm +inf
+    if not history:
+        r, t, gn, it = svn.align_loop(cfg, 1, step, state)
+        return ensemble_outputs(coll, r, t, it, gn, None)
+    hist = []
+    r, t, gn, it = svn.align_loop(cfg, cfg.iterations, step, state,
+                                  record=lambda r_, t_: hist.append(gathered(r_, t_)))
+    return ensemble_outputs(coll, r, t, it, gn, torch.stack(hist))
 
 
 def sharded_align(mesh, cfg: SteinICPConfig, source, src_valid, cand_pts,
@@ -241,8 +208,10 @@ def sharded_align(mesh, cfg: SteinICPConfig, source, src_valid, cand_pts,
     rows and candidates [B,...] are split over the point axis, the particles
     [P,6] over the particle axis; the result is replicated. With history,
     (result, [iters,P,6] particle stack)."""
-    def body(coll, *local):
-        return _align_shard(coll, cfg, *local, history)
+    def body(coll, source_l, src_valid_l, cand_l, cand_valid_l, r0_l, t0_l, init_l):
+        prep = shard_prep(cfg, source_l, src_valid_l, cand_l, cand_valid_l)
+        return _align_shard(coll, cfg, source_l, src_valid_l, prep, r0_l, t0_l,
+                            init_l, history)
 
     outs = mesh.run(body, (source, src_valid, cand_pts, cand_valid, r0, t0, init_particles),
                     (POINT_AXIS,) * 4 + (None, None, PARTICLE_AXIS), RESULT_SPECS)
@@ -260,8 +229,9 @@ def sharded_register(mesh, cfg: SteinICPConfig, source, src_valid, target,
         at_guess = geo.transform_points(r0_l, t0_l, source_l)
         idx, d2 = knn.find_candidates(cfg, at_guess, target_r, src_valid_l, tgt_valid_r)
         cand_pts, cand_valid = knn.gather_candidates(target_r, idx, d2)
-        return _align_shard(coll, cfg, source_l, src_valid_l, cand_pts, cand_valid,
-                            r0_l, t0_l, init_l, history)
+        prep = shard_prep(cfg, source_l, src_valid_l, cand_pts, cand_valid)
+        return _align_shard(coll, cfg, source_l, src_valid_l, prep, r0_l, t0_l,
+                            init_l, history)
 
     outs = mesh.run(body, (source, src_valid, target, tgt_valid, r0, t0, init_particles),
                     (POINT_AXIS, POINT_AXIS, None, None, None, None, PARTICLE_AXIS),

@@ -268,17 +268,8 @@ def sharded_register_with_map(mesh, cfg: SteinICPConfig, source, src_valid,
         if cfg.residual == "point_to_plane":
             normals = residuals.plane_normals(cand_pts, cand_valid)
         prep = svn.AlignPrep(cand_pts, cand_valid, normals, feat, bias, None)
-        r = geo.so3_exp(init_l[:, 3:])
-        t = init_l[:, :3].contiguous()
-
-        def iter_fn(r_, t_):
-            return sharding._sharded_iteration(coll, cfg, source_l, src_valid_l, prep,
-                                               r0_l, t0_l, r_, t_)
-
-        degenerate = sharding._degenerate_global(coll, src_valid_l, cand_valid)
-        r, t, it, gn, hist = sharding.run_align_loop(coll, cfg, iter_fn, r, t,
-                                                     degenerate, history)
-        return sharding.ensemble_outputs(coll, r, t, it, gn, hist)
+        return sharding._align_shard(coll, cfg, source_l, src_valid_l, prep, r0_l,
+                                     t0_l, init_l, history)
 
     outs = mesh.run(body, (source, src_valid, *vmap_global, r0, t0, init_particles),
                     (POINT_AXIS,) * 5 + (None, None, PARTICLE_AXIS),

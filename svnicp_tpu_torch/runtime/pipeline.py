@@ -32,8 +32,8 @@ The state is a NamedTuple of tensors plus a few host values (frame index,
 ring fill count, the particle generator); steps return a new state and
 leave the old one intact except for the generator, which advances. Where
 the JAX step selects with `where(align_ok, ...)` on the device, this one
-reads `align_ok` on the host (the align loop syncs every iteration anyway)
-and branches. A per-frame step returns a FrameOutput of tensors on the
+reads `align_ok` on the host (the align loop reads it once a round of
+its passes anyway) and branches. A per-frame step returns a FrameOutput of tensors on the
 device. With `dispatch_batch` > 1 the driver stages F frames, uploads them
 with one copy, runs them through the same per-frame step in order
 (`odometry_steps_packed`, `odometry_steps_packed_pre`) and returns their
@@ -656,8 +656,9 @@ def odometry_steps_packed(cfg: PipelineConfig, state: OdometryState,
     F axis): one upload of the F frames' rows, then `odometry_step_raw` on
     each in order, the small outputs packed into one buffer pair for one
     read-back. Unlike the JAX package's lax.scan the frames are F steps,
-    not one program: the align loop reads the host every iteration, so a
-    batch saves the per-frame uploads and read-backs, nothing more."""
+    not one program: the align loop reads the host once a round of its
+    passes, so a batch saves the per-frame uploads and read-backs, nothing
+    more."""
     dtype = _dtype(cfg)
 
     def one(st, buf, f, time):

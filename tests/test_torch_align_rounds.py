@@ -1,14 +1,25 @@
-"""The align loop in rounds of m device-frozen passes (`svn.align`, one read
-of the stop flags a round) against the loop it replaces, written out here:
-one pass at a time with a host read of the stop statistic after each. The
-AlignResult must be the same bit for bit (particles, mean, var, cov,
-grad_norm, iterations) in float32 and float64 with m of 1, 3 and 8 (the
-CPU runs m = 1; the card runs `svn.ALIGN_CHUNK`), for a frame that stops
-inside a round, one that stops on a round's last pass, one that runs to
-the cap, one with early_stop off and a degenerate set. The thresholds are
-set from the frame's own sequence of stop statistics, so each case stops
-where it is meant to; one case puts the threshold a quarter ulp above a
-float32 statistic, where only a float64 comparison stops.
+"""The SVN align loop's driver (`svn.align_loop`) against the loop it
+replaces, written out here: one pass at a time with a host read of the
+stop statistic after each.
+
+- `svn.align`, in rounds of m device-frozen passes (one read of the stop
+  flags a round): the AlignResult must be the same bit for bit
+  (particles, mean, var, cov, grad_norm, iterations) in float32 and
+  float64 with m of 1, 3 and 8 (the CPU runs m = 1; the card runs
+  `svn.ALIGN_CHUNK`), for a frame that stops inside a round, one that
+  stops on a round's last pass, one that runs to the cap, one with
+  early_stop off and a degenerate set.
+- `svn.align_with_history`, one round of every pass: each row of the
+  history is the particles after its pass, the rows after the stop
+  repeat the final particles, and the AlignResult is `align`'s.
+- The mesh's loop (`sharding.sharded_align` on a (2, 2) mesh of CPU
+  shards), one pass a round: bit-equal to the per-pass loop over
+  `sharding._sharded_iteration`, with and without history.
+
+The thresholds are set from the frame's own sequence of stop statistics,
+so each case stops where it is meant to; one case puts the threshold a
+quarter ulp above a float32 statistic, where only a float64 comparison
+stops.
 
 Three noise-free planes (the crisp problem of tests/test_torch_svn.py),
 P=8 against the candidates of 256 source points, K=16, on the CPU.
@@ -23,6 +34,8 @@ import torch
 from svnicp_tpu_torch.config import SteinICPConfig
 from svnicp_tpu_torch.core import geometry as geo
 from svnicp_tpu_torch.core import svn
+from svnicp_tpu_torch.parallel import sharding
+from svnicp_tpu_torch.parallel.mesh import PARTICLE_AXIS, POINT_AXIS
 
 torch.set_num_threads(2)
 
@@ -63,9 +76,10 @@ def _frame(dtype, residual="point_to_point", use_pallas=True):
     return [src, src_valid, cand_pts, cand_valid, r0, t0, init]
 
 
-def per_pass(cfg, args):
+def per_pass(cfg, args, rows=None):
     """The loop with a host read after every pass -> (AlignResult, the stop
-    statistics read, as floats)."""
+    statistics read, as floats); the particles after each pass are
+    appended to `rows` when it is given."""
     source, src_valid, cand_pts, cand_valid, r0, t0, init = args
     r, t, degenerate, prep, prior = svn._start(cfg, source, src_valid, cand_pts,
                                                cand_valid, r0, t0, init)
@@ -78,6 +92,8 @@ def per_pass(cfg, args):
                                                    prior, r0, t0, r, t)
         it += 1
         stops.append(float(stop))
+        if rows is not None:
+            rows.append(svn.particle_coords(r, t))
         if cfg.early_stop:
             done = float(stop) < cfg.convergence_threshold
     return svn.ensemble_result(r, t, it, grad_norm), stops
@@ -86,6 +102,12 @@ def per_pass(cfg, args):
 def chunked(cfg, args, m, monkeypatch):
     monkeypatch.setattr(svn, "_chunk", lambda device: m)
     return svn.align(cfg, *args)
+
+
+def history_of(want, rows):
+    """The history the per-pass loop's rows make: the particles after each
+    pass, then its final particles repeated to the cap."""
+    return torch.stack(rows + [want.particles] * (CAP - len(rows)))
 
 
 def assert_same(got, want):
@@ -126,26 +148,29 @@ def frame(request):
     return args, stops
 
 
+def set_up(case, args, stops, m):
+    """The configuration and frame of a case, and the passes it runs."""
+    if case in ("inside_a_round", "on_a_rounds_last_pass"):
+        on_last = case == "on_a_rounds_last_pass" or m == 1
+        want_iters, thr = threshold_stopping_at(stops, m, on_last)
+        return dataclasses.replace(ICP, convergence_threshold=thr), args, want_iters
+    if case == "to_the_cap":
+        return ICP, args, CAP
+    if case == "early_stop_off":
+        return (dataclasses.replace(ICP, early_stop=False, convergence_threshold=1.0),
+                args, CAP)
+    args = list(args)
+    args[1] = torch.zeros_like(args[1])
+    args[1][:3] = True
+    return ICP, args, 0
+
+
 @pytest.mark.parametrize("m", [1, 3, 8])
 @pytest.mark.parametrize("case", ["inside_a_round", "on_a_rounds_last_pass",
                                   "to_the_cap", "early_stop_off", "degenerate"])
 def test_rounds_equal_the_per_pass_loop(frame, case, m, monkeypatch):
     args, stops = frame
-    cfg, want_iters = ICP, None
-    if case in ("inside_a_round", "on_a_rounds_last_pass"):
-        on_last = case == "on_a_rounds_last_pass" or m == 1
-        want_iters, thr = threshold_stopping_at(stops, m, on_last)
-        cfg = dataclasses.replace(ICP, convergence_threshold=thr)
-    elif case == "to_the_cap":
-        want_iters = CAP
-    elif case == "early_stop_off":
-        cfg = dataclasses.replace(ICP, early_stop=False, convergence_threshold=1.0)
-        want_iters = CAP
-    else:
-        args = list(args)
-        args[1] = torch.zeros_like(args[1])
-        args[1][:3] = True
-        want_iters = 0
+    cfg, args, want_iters = set_up(case, args, stops, m)
     want, _ = per_pass(cfg, args)
     got = chunked(cfg, args, m, monkeypatch)
     assert want.iterations == want_iters
@@ -161,16 +186,22 @@ def test_float32_statistic_just_under_the_threshold_stops(m, monkeypatch):
     float64, as the host compares float(stop), it is true and the loop stops
     there."""
     args = _frame(torch.float32)
+    cfg, n = quarter_ulp_above(args)
+    want, _ = per_pass(cfg, args)
+    assert want.iterations == n
+    assert_same(chunked(cfg, args, m, monkeypatch), want)
+
+
+def quarter_ulp_above(args):
+    """The configuration whose threshold lies a quarter ulp above the
+    float32 statistic of a pass n inside the cap, and n."""
     _, stops = per_pass(dataclasses.replace(ICP, early_stop=False), args)
     n, low = next((n, low) for n, low in records(stops) if 2 <= n < CAP)
     s = np.float32(stops[n - 1])
     thr = float(s) + float(np.spacing(s)) / 4
     assert thr < low and np.float32(thr) == s
     assert not bool(torch.tensor(s) < thr)      # what a float32 comparison says
-    cfg = dataclasses.replace(ICP, convergence_threshold=thr)
-    want, _ = per_pass(cfg, args)
-    assert want.iterations == n
-    assert_same(chunked(cfg, args, m, monkeypatch), want)
+    return dataclasses.replace(ICP, convergence_threshold=thr), n
 
 
 @pytest.mark.parametrize("route", ["plane", "plain_update", "xla"])
@@ -224,3 +255,101 @@ def test_rounds_are_counted_and_read_as_the_replayed_share(monkeypatch):
     assert read({"svnicp.align.graph_replays": 3, "svnicp.align.eager_rounds": 1}) == 75.0
     assert read({"svnicp.candidates.scores": 5}) is None
     assert metric.read(types.SimpleNamespace(probes={})) is None
+
+
+@pytest.mark.parametrize("case", ["inside_a_round", "to_the_cap", "early_stop_off",
+                                  "degenerate"])
+def test_history_equals_the_per_pass_loop(frame, case):
+    """`align_with_history` runs one round of every pass: row n is the
+    particles after pass n, the rows after the stop repeat the final
+    particles, and its AlignResult is the per-pass loop's and `align`'s."""
+    args, stops = frame
+    cfg, args, want_iters = set_up(case, args, stops, 1)
+    rows = []
+    want, _ = per_pass(cfg, args, rows)
+    got, history = svn.align_with_history(cfg, *args)
+    assert want.iterations == want_iters
+    assert_same(got, want)
+    assert_same(svn.align(cfg, *args), want)
+    assert history.dtype == want.particles.dtype
+    assert torch.equal(history, history_of(want, rows))
+
+
+def test_history_stops_on_a_float32_statistic_just_under_the_threshold():
+    """The history loop compares in float64 as `align` does: with the
+    threshold a quarter ulp above a float32 statistic it stops there."""
+    args = _frame(torch.float32)
+    cfg, n = quarter_ulp_above(args)
+    rows = []
+    want, _ = per_pass(cfg, args, rows)
+    got, history = svn.align_with_history(cfg, *args)
+    assert want.iterations == got.iterations == n
+    assert_same(got, want)
+    assert torch.equal(history, history_of(want, rows))
+
+
+MESH = sharding.make_mesh(2, 2, devices=["cpu"] * 4)
+MESH_SPECS = (POINT_AXIS,) * 4 + (None, None, PARTICLE_AXIS)
+
+
+def mesh_per_pass(cfg, args):
+    """`sharding.sharded_align`'s body with its loop written out: a host read
+    of the stop statistic after every `sharding._sharded_iteration` ->
+    (AlignResult, the statistics read, the gathered particles after each
+    pass)."""
+    stops, rows = [], []
+
+    def body(coll, source, src_valid, cand_pts, cand_valid, r0, t0, init):
+        first = coll.axis_index(PARTICLE_AXIS) == coll.axis_index(POINT_AXIS) == 0
+        prep = sharding.shard_prep(cfg, source, src_valid, cand_pts, cand_valid)
+        r, t = geo.so3_exp(init[:, 3:]), init[:, :3].contiguous()
+        it, done = 0, False
+        grad_norm = torch.tensor(float("inf"), dtype=source.dtype)
+        while not done and it < cfg.iterations:
+            r, t, grad_norm, stop = sharding._sharded_iteration(
+                coll, cfg, source, src_valid, prep, r0, t0, r, t)
+            it += 1
+            coords = coll.all_gather(svn.particle_coords(r, t), PARTICLE_AXIS, tiled=True)
+            if first:
+                stops.append(float(stop))
+                rows.append(coords)
+            if cfg.early_stop:
+                done = float(stop) < cfg.convergence_threshold
+        return sharding.ensemble_outputs(coll, r, t, it, grad_norm, None)
+
+    outs = MESH.run(body, args, MESH_SPECS, sharding.RESULT_SPECS)
+    return sharding.to_result(outs, False), stops, rows
+
+
+@pytest.fixture(scope="module", params=[torch.float32, torch.float64],
+                ids=["f32", "f64"])
+def mesh_frame(request):
+    args = _frame(request.param)
+    _, stops, _ = mesh_per_pass(dataclasses.replace(ICP, early_stop=False), args)
+    assert len(stops) == CAP
+    return args, stops
+
+
+@pytest.mark.parametrize("case", ["inside_a_round", "to_the_cap", "early_stop_off",
+                                  "history"])
+def test_mesh_loop_equals_the_per_pass_loop(mesh_frame, case):
+    """The mesh runs svn's driver with one pass a round (with history, one
+    round of every pass): the same AlignResult bit for bit as a host read
+    after every sharded pass, one eager round a pass on each shard, and
+    with history the gathered particles after each pass."""
+    from svnicp_tpu_torch.runtime import profiling
+
+    args, stops = mesh_frame
+    history = case == "history"
+    cfg, args, want_iters = set_up("inside_a_round" if history else case, args,
+                                   stops, 1)
+    want, _, rows = mesh_per_pass(cfg, args)
+    with profiling.tracing() as tr:
+        got = sharding.sharded_align(MESH, cfg, *args, history=history)
+    assert want.iterations == want_iters
+    if history:
+        got, hist = got
+        assert torch.equal(hist, history_of(want, rows))
+    assert_same(got, want)
+    rounds = 1 if history else want.iterations
+    assert tr.counters["svnicp.align.eager_rounds"] == MESH.size * rounds

@@ -64,6 +64,9 @@ EXCEPTIONS = {
         "stein.lower_median_radix",
     ("kernels/stein_pallas.py", "stein_body"):
         "the Pallas kernel's body; the port's plain version is stein.stein_update_plain",
+    ("parallel/sharding.py", "run_align_loop"):
+        "the JAX package's shard-local loop; the port's mesh runs the SVN "
+        "loop's one driver, svn.align_loop, from sharding._align_shard",
     ("runtime/pipeline.py", "FrameInput"):
         "the jit entry points' pytree of one frame's staged inputs; the port's "
         "steps take those tensors as arguments",
