@@ -7,8 +7,9 @@ same rows in the same order as the JAX package:
 - a stable merge of old and new points by voxel key (old points first), a
   per-voxel cap, first come first kept;
 - whole-voxel eviction by the distance of the voxel's first point, and
-  radius queries gated the same way (the first row's flag rides the low
-  bit of one cummax over packed run-start indices);
+  radius queries gated the same way (each row gathers its run's first
+  row's flag, the run start found by binary search on the sorted keys,
+  where the JAX package takes a cummax over run-start indices);
 - at capacity, a spatially uniform subset is shed by a per-row hash
   threshold, `sort(shed)[capacity-1]`;
 - a radius that selects nothing returns the whole map;
@@ -27,6 +28,7 @@ from svnicp_tpu_torch.core import geometry as geo
 from svnicp_tpu_torch.core.pointcloud import (
     INT32_MAX, INVALID_KEY, PaddedCloud, _pack, compact_by_rank, hash32,
     mul_u32, sq_norm3, voxel_coords, voxel_key)
+from svnicp_tpu_torch.runtime.profiling import count
 
 
 class VoxelMap(NamedTuple):
@@ -59,26 +61,12 @@ def get_all(vmap: VoxelMap) -> PaddedCloud:
     return PaddedCloud(vmap.points, vmap.valid)
 
 
-def _run_starts(sorted_key: torch.Tensor) -> torch.Tensor:
-    first = torch.ones_like(sorted_key, dtype=torch.bool)
-    first[1:] = sorted_key[1:] != sorted_key[:-1]
-    return first
-
-
-def _first_point_per_run(sorted_key: torch.Tensor) -> torch.Tensor:
-    """Index of the first slot holding each slot's key."""
-    idx = torch.arange(sorted_key.shape[0], device=sorted_key.device)
-    start = torch.where(_run_starts(sorted_key), idx, torch.zeros_like(idx))
-    return torch.cummax(start, dim=0).values
-
-
-def _first_run_flag(sorted_key: torch.Tensor, flag: torch.Tensor) -> torch.Tensor:
-    """Broadcast a per-row flag from each run's FIRST row to the whole run:
-    the run start rides the high bits of one cummax, the flag the low bit."""
-    idx = torch.arange(sorted_key.shape[0], device=sorted_key.device)
-    packed = torch.where(_run_starts(sorted_key), idx * 2 + flag.to(idx.dtype),
-                         torch.zeros_like(idx))
-    return (torch.cummax(packed, dim=0).values & 1).bool()
+def _run_start(sorted_key: torch.Tensor) -> torch.Tensor:
+    """Index of the first row holding each row's key (int64), by binary
+    search on the ascending keys: no scan, no read-back. The INVALID_KEY
+    tail is one run."""
+    count("svnicp.map.run_searches")
+    return torch.searchsorted(sorted_key, sorted_key, right=False)
 
 
 def insert(vmap: VoxelMap, scan: PaddedCloud, pose_r: torch.Tensor,
@@ -97,12 +85,12 @@ def insert(vmap: VoxelMap, scan: PaddedCloud, pose_r: torch.Tensor,
     skey, order = torch.sort(all_key, stable=True)
     spts = all_pts[order]
 
-    n = skey.shape[0]
-    rank = (torch.arange(n, device=skey.device)
-            - _first_point_per_run(skey)).to(torch.int32)
+    start = _run_start(skey)
+    rank = (torch.arange(skey.shape[0], device=skey.device)
+            - start).to(torch.int32)
     keep = (skey != INVALID_KEY) & (rank < max_points_per_voxel)
     d2 = sq_norm3(spts - pose_t)
-    keep &= _first_run_flag(skey, d2 <= max_range * max_range)
+    keep &= (d2 <= max_range * max_range)[start]
     kept_total = keep.sum()
 
     # capacity shedding: keep the rows whose per-row hash is at most the
@@ -129,7 +117,7 @@ def query_radius(vmap: VoxelMap, center: torch.Tensor, radius: float,
     map when the radius selects nothing. Returns (target cloud, number of
     selected points that did not fit)."""
     d2 = sq_norm3(vmap.points - center)
-    in_radius = vmap.valid & _first_run_flag(vmap.key, d2 <= radius * radius)
+    in_radius = vmap.valid & (d2 <= radius * radius)[_run_start(vmap.key)]
     selected = torch.where(in_radius.any(), in_radius, vmap.valid)
     rank = torch.where(selected, hash32(vmap.key) & -2,
                        torch.full_like(vmap.key, INT32_MAX))

@@ -1114,9 +1114,9 @@ def test_stage1_kernel_at_the_full_subt_target(dev):
 def test_voxmap_on_a_full_table_matches_the_cpu(dev):
     """`voxmap.insert` and `query_radius` on a 2^20-row map, ~700,000 rows
     held (as the SubT-MRS live drive's map at its end): the sorts, the
-    int64 run broadcasts and the compaction into a 2^20-row target give
-    the card the CPU's rows, keys and counts exactly (the pose's rotation
-    is the identity, so the transform rounds alike on both)."""
+    run starts' binary search and the compaction into a 2^20-row target
+    give the card the CPU's rows, keys and counts exactly (the pose's
+    rotation is the identity, so the transform rounds alike on both)."""
     from svnicp_tpu_torch.core import voxmap
     from svnicp_tpu_torch.core.pointcloud import PaddedCloud
 
@@ -1142,6 +1142,55 @@ def test_voxmap_on_a_full_table_matches_the_cpu(dev):
     assert 600_000 < rows < FULL and int(cpu[4]) == 0 and int(cpu[7]) == 0
     for a, b_ in zip(cpu, card):
         assert torch.equal(a, b_)
+
+
+def _cummax_run_start(sorted_key):
+    """Each row's run start as a prefix-max scan over the run-start
+    indices: the reference for `voxmap._run_start`."""
+    first = torch.ones_like(sorted_key, dtype=torch.bool)
+    first[1:] = sorted_key[1:] != sorted_key[:-1]
+    idx = torch.arange(sorted_key.shape[0], device=sorted_key.device)
+    return torch.cummax(torch.where(first, idx, torch.zeros_like(idx)), 0).values
+
+
+def test_map_run_starts_by_search_at_the_full_table(dev):
+    """At the SubT-MRS insert's 2^20 + 16,384 merged rows, ~700,000 keys
+    and an INVALID_KEY tail, the binary search's run starts equal the
+    prefix-max scan's bit for bit on the card; one insert and one radius
+    query of a 2^20-row map launch no scan kernel and count two
+    searches."""
+    from svnicp_tpu_torch.core import voxmap
+    from svnicp_tpu_torch.core.pointcloud import INVALID_KEY, PaddedCloud
+    from svnicp_tpu_torch.runtime import profiling
+
+    g = torch.Generator().manual_seed(23)
+    key = torch.randint(-350_000, 350_000, (FULL + 16384,), generator=g,
+                        dtype=torch.int32)
+    key[-300_000:] = INVALID_KEY
+    key = torch.sort(key).values.to(dev)
+    start = voxmap._run_start(key)
+    assert start.dtype == torch.int64
+    assert torch.equal(start, _cummax_run_start(key))
+
+    held = torch.rand((700_000, 3), generator=g) * torch.tensor([120.0, 120.0, 8.0]) \
+        - torch.tensor([60.0, 60.0, 0.5])
+    eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    vmap, _ = voxmap.insert(voxmap.create(FULL, device=dev), PaddedCloud(
+        held.to(dev), torch.ones(len(held), dtype=torch.bool, device=dev)),
+        eye, zero, 0.2, 1, 100.0)
+    scan = PaddedCloud((torch.rand((16384, 3), generator=g) * 80 - 40).to(dev),
+                       torch.ones(16384, dtype=torch.bool, device=dev))
+
+    def step():
+        voxmap.insert(vmap, scan, eye, zero, 0.2, 1, 100.0)
+        voxmap.query_radius(vmap, zero, 70.0, FULL)
+
+    names = _kernel_names(step, calls=1)
+    assert not [n for n in names if "scan_innermost_dim_with_indices" in n], names
+    assert [n for n in names if "searchsorted" in n], names
+    with profiling.tracing() as trace:
+        step()
+    assert trace.counters["svnicp.map.run_searches"] == 2
 
 
 def test_icp_frame_at_full_size_counts_every_stage1_score(dev):

@@ -112,3 +112,56 @@ def test_query_radius_exact(radius, target_cap):
     np.testing.assert_array_equal(tc.points.numpy(), np.asarray(jc.points))
     if radius == 0.5:
         assert int(tc.valid.sum()) == min(int(tm.count()), target_cap)
+
+
+def _cummax_first(sorted_key):
+    """The run broadcasts as a prefix-max scan, the reference for
+    `voxmap._run_start`: each row's run start is the largest run-start
+    index at or before it."""
+    first = torch.ones_like(sorted_key, dtype=torch.bool)
+    first[1:] = sorted_key[1:] != sorted_key[:-1]
+    idx = torch.arange(sorted_key.shape[0])
+    return torch.cummax(torch.where(first, idx, torch.zeros_like(idx)), 0).values
+
+
+def _cummax_flag(sorted_key, flag):
+    """The first row's flag broadcast over its run, riding the low bit of
+    one cummax over packed run-start indices."""
+    first = torch.ones_like(sorted_key, dtype=torch.bool)
+    first[1:] = sorted_key[1:] != sorted_key[:-1]
+    idx = torch.arange(sorted_key.shape[0])
+    packed = torch.where(first, idx * 2 + flag.to(idx.dtype), torch.zeros_like(idx))
+    return (torch.cummax(packed, 0).values & 1).bool()
+
+
+def _keys(case, rng):
+    if case == "random_invalid_tail":
+        k = np.sort(rng.integers(-400, 400, 3000)) * 5_000_000
+        return np.concatenate([k, np.full(700, tpc.INVALID_KEY)])
+    if case == "one_key":
+        return np.full(500, -7)
+    if case == "distinct":
+        return np.sort(rng.choice(2**31 - 1, 1000, replace=False)) - 2**30
+    if case == "one_row":
+        return np.array([123])
+    lengths = np.concatenate([np.arange(1, 21), rng.integers(1, 4, 50),
+                              np.arange(20, 0, -1)])
+    return np.repeat(np.arange(len(lengths)) * 3 - 60, lengths)
+
+
+@pytest.mark.parametrize("case", ["random_invalid_tail", "one_key", "distinct",
+                                  "one_row", "runs_1_to_20_at_both_ends"])
+def test_run_start_equals_the_cummax_broadcasts(rng, case):
+    """The binary search's run starts, and a flag gathered from them, equal
+    the prefix-max scan's bit for bit on sorted keys."""
+    from svnicp_tpu_torch.runtime import profiling
+
+    key = torch.from_numpy(_keys(case, rng).astype(np.int32))
+    assert torch.equal(key, torch.sort(key).values)
+    flag = torch.from_numpy(rng.random(key.shape[0]) < 0.5)
+    with profiling.tracing() as trace:
+        start = tvm._run_start(key)
+    assert trace.counters["svnicp.map.run_searches"] == 1
+    assert start.dtype == torch.int64
+    assert torch.equal(start, _cummax_first(key))
+    assert torch.equal(flag[start], _cummax_flag(key, flag))

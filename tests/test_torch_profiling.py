@@ -237,7 +237,10 @@ def test_traced_drive_has_each_layer_span_once_per_frame(runs):
         "svnicp.imu_samples": IMU_PER_FRAME * (N_FRAMES - 1),
         "svnicp.candidates.scores": calls * icp["source_capacity"] * icp["target_capacity"],
         "svnicp.candidates.target_rows": calls * icp["target_capacity"],
-        "svnicp.align.eager_rounds": sum(iters)}
+        "svnicp.align.eager_rounds": sum(iters),
+        "svnicp.map.run_searches": N_FRAMES + calls}     # each insert, each query
+    assert len(trace.named("svnicp.map.insert")) == N_FRAMES
+    assert len(trace.named("svnicp.map.query")) == calls
     assert len(trace.named("svnicp.candidates")) == calls
     # the constant-velocity guess's span is the ICP estimator's alone
     assert trace.named("svnicp.predict") == []
@@ -272,7 +275,9 @@ def test_icp_frame_opens_one_predict_span_and_counts_stage_one():
         "svnicp.candidates.scores": len(cands) * icp["source_capacity"]
         * icp["target_capacity"],
         "svnicp.candidates.target_rows": len(cands) * icp["target_capacity"],
-        "svnicp.align.eager_rounds": sum(o.icp_iterations for o in pipe.outputs)}
+        "svnicp.align.eager_rounds": sum(o.icp_iterations for o in pipe.outputs),
+        "svnicp.map.run_searches": len(trace.named("svnicp.map.insert"))
+        + len(trace.named("svnicp.map.query"))}
     assert not trace.named("svnicp.filter.predict") and not trace.named(
         "svnicp.filter.update")
 
