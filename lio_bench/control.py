@@ -39,7 +39,7 @@ def _setting(name: str, overrides):
     overrides = overrides or {}
     cfg = cellmod.merge(cellmod.config_dict(c), overrides.get("pipeline"))
     tr = cellmod.merge(cellmod.traffic(c), overrides.get("traffic"))
-    return c, cfg, tr
+    return c, cellmod.reference(c), cfg, tr
 
 
 def _report(name, seed, frames, numbers, limits, aligned) -> dict:
@@ -59,14 +59,14 @@ def control_numbers(name: str, seed: int, frames: int, device, overrides=None) -
     from lio_bench.harness import drive as drive_mod
     from lio_bench.harness import judge
 
-    c, cfg, tr = _setting(name, overrides)
+    c, ref, cfg, tr = _setting(name, overrides)
     icp = cfg["icp"]
     drv = drive_mod.make_drive(tr, seed, frames, int(icp["particle_count"]),
                                *drive_mod.prior_box(icp))
-    out = judge.control_outputs(cfg, drv, frames, device)
+    out = judge.control_outputs(ref, cfg, drv, frames, device)
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    numbers = judge.judge(cfg, drv, out, seed, int(tr["check_frames"]), device)
+    numbers = judge.judge(ref, cfg, drv, out, seed, int(tr["check_frames"]), device)
     return _report(name, seed, frames, numbers, cellmod.limits(c), int(out.align_ok.sum()))
 
 
@@ -81,7 +81,7 @@ def program_numbers(name: str, seed: int, device, overrides=None, seconds=None,
     from lio_bench.harness import drive as drive_mod
     from lio_bench.harness import faults, judge, window
 
-    c, cfg_d, tr = _setting(name, overrides)
+    c, ref, cfg_d, tr = _setting(name, overrides)
     seconds = c.manifest["run_seconds"] if seconds is None else seconds
     patch = faults.Patch()
     try:
@@ -104,7 +104,7 @@ def program_numbers(name: str, seed: int, device, overrides=None, seconds=None,
     del feeder
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    numbers = judge.judge(cfg_d, drv, out, seed, int(tr["check_frames"]), device)
+    numbers = judge.judge(ref, cfg_d, drv, out, seed, int(tr["check_frames"]), device)
     return _report(name, seed, n, numbers, cellmod.limits(c), int(out.align_ok.sum()))
 
 

@@ -4,9 +4,11 @@ measure, judge, print.
 Everything that belongs to a configuration, a traffic mix or a metric is a
 file of its own that this module finds by the names in `BENCHMARK.json`:
 `lio_bench/configs/<config>.yaml` (`file` in the manifest),
-`lio_bench/traffic/<traffic>.yaml`, `lio_bench/metrics/<metric>.py` and
-`lio_bench/limits/<cell>.json`. A new cell, mix or metric is new files
-and manifest entries, with no edit here.
+`lio_bench/traffic/<traffic>.yaml`, `lio_bench/metrics/<metric>.py`,
+`lio_bench/limits/<cell>.json`, and the plain reference that the
+configuration file names, `lio_bench/reference/<reference>.py`. A new
+cell, mix, metric or reference is new files and manifest entries, with no
+edit here.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import sys
 import time
 from pathlib import Path
@@ -26,6 +29,7 @@ import yaml
 BENCH = Path(__file__).resolve().parent.parent        # lio_bench/
 ROOT = BENCH.parent                                     # the checkout
 FORBIDDEN = ("jax", "jaxlib", "flax", "svnicp_tpu")     # top-level module names
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
 class CellError(RuntimeError):
@@ -41,6 +45,7 @@ class Cell:
     chips: int
     metrics: list             # manifest entries of the metrics this cell reports
     manifest: dict
+    root: Path = ROOT
 
 
 def manifest(root: Path = ROOT) -> dict:
@@ -69,7 +74,7 @@ def find_cell(name: str, root: Path = ROOT) -> Cell:
     c = next(c for c in man["configs"] if c["name"] == w["config"])
     metrics = [m for m in man["end_to_end"] + man["per_layer"] if reports(m, name, man)]
     return Cell(name, c["name"], root / c["file"], w["traffic"], int(w["chips"]),
-                metrics, man)
+                metrics, man, root)
 
 
 def load_yaml(path: Path) -> dict:
@@ -79,12 +84,15 @@ def load_yaml(path: Path) -> dict:
 
 def config_dict(cell: Cell) -> dict:
     """The configuration as run: the `pipeline` block of the frozen copy,
-    whose `reference` must be the one the judge implements."""
+    whose `reference` must name a module under `lio_bench/reference/`."""
     doc = load_yaml(cell.config_file)
-    if doc.get("reference") != "svn_odometry":
-        raise CellError(f"{cell.config_file.name}: the judge works out the reference "
-                        f"svn_odometry only, not {doc.get('reference')!r}")
+    reference_module(doc.get("reference"), cell.root)
     return doc["pipeline"]
+
+
+def reference(cell: Cell):
+    """The plain reference that the cell's configuration file names."""
+    return reference_module(load_yaml(cell.config_file).get("reference"), cell.root)
 
 
 def traffic(cell: Cell, root: Path = ROOT) -> dict:
@@ -92,15 +100,41 @@ def traffic(cell: Cell, root: Path = ROOT) -> dict:
 
 
 def limits(cell: Cell, root: Path = ROOT) -> dict:
+    """The limit of each number the comparison reads: the cell's limits
+    file, and 0 for the counts of the size guarantees its configuration
+    states (`judge.guarantee_limits`)."""
+    from lio_bench.harness import judge
+
     with open(root / "lio_bench" / "limits" / f"{cell.name}.json") as f:
-        return json.load(f)["limits"]
+        lim = json.load(f)["limits"]
+    return {**lim, **judge.guarantee_limits(load_yaml(cell.config_file).get("guarantees"))}
+
+
+def _load(path: Path, name: str, register: bool = False):
+    """The module at `path`; with `register`, entered in sys.modules as
+    `name` (dataclasses look their module up there while they are made)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    if register:
+        sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def metric_module(name: str, root: Path = ROOT):
-    path = root / "lio_bench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"lio_bench_metric_{name}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    return _load(root / "lio_bench" / "metrics" / f"{name}.py", f"lio_bench_metric_{name}")
+
+
+def reference_module(name, root: Path = ROOT):
+    """`lio_bench/reference/<name>.py` under `root`, imported once a process
+    (as `lio_bench_reference_<name>`); a name with no such module is a
+    CellError."""
+    path = root / "lio_bench" / "reference" / f"{name}.py"
+    if not (isinstance(name, str) and NAME.fullmatch(name) and path.is_file()):
+        raise CellError(f"no reference module {name!r} under {path.parent}")
+    mod = sys.modules.get(f"lio_bench_reference_{name}")
+    if mod is None or Path(mod.__file__).resolve() != path.resolve():
+        mod = _load(path, f"lio_bench_reference_{name}", register=True)
     return mod
 
 
@@ -147,6 +181,9 @@ def pass_outputs(pipe):
                            ).double().cpu().numpy()
 
     vmap = pipe.state.vmap
+    counts = torch.stack([torch.stack([o.map_dropped.reshape(()).long(),
+                                       o.target_overflow.reshape(()).long()])
+                          for o in outs]).cpu().numpy()
     return PassOutputs(
         pose_r=stack("pose_r", (3, 3)), pose_t=stack("pose_t", (3,)),
         guess_r=stack("guess_r", (3, 3)), guess_t=stack("guess_t", (3,)),
@@ -155,7 +192,8 @@ def pass_outputs(pipe):
         iterations=np.asarray([int(o.icp_iterations) for o in outs]),
         align_ok=np.asarray([bool(o.align_ok) for o in outs]),
         map_points=vmap.points.cpu().numpy(), map_key=vmap.key.cpu().numpy(),
-        map_valid=vmap.valid.cpu().numpy())
+        map_valid=vmap.valid.cpu().numpy(),
+        map_dropped=counts[:, 0], target_overflow=counts[:, 1])
 
 
 def cpu_times() -> tuple[float, float]:
@@ -223,11 +261,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda",
 
     overrides = overrides or {}
     cfg_d = merge(config_dict(cell), overrides.get("pipeline"))
+    ref = reference(cell)
     cfg = pconfig.from_dict(cfg_d)
     tr = merge(traffic(cell, root), overrides.get("traffic"))
     lim = limits(cell, root)
     n_frames = drive_mod.frame_count(tr, seconds)
-    judge.check_supported(cfg_d)
+    judge.check_supported(ref, cfg_d)
     drv = drive_mod.make_drive(tr, seed, n_frames, cfg.icp.particle_count,
                                *drive_mod.prior_box(cfg_d["icp"]))
     parts = torch.from_numpy(drv.particles).to(device)
@@ -285,7 +324,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda",
     del pipes, judged, win.passes[:]
     if device == "cuda":
         torch.cuda.empty_cache()
-    numbers = judge.judge(cfg_d, drv, outs, seed, int(tr["check_frames"]), device)
+    numbers = judge.judge(ref, cfg_d, drv, outs, seed, int(tr["check_frames"]), device)
     ok, lines = judge.verdict(numbers, lim)
     attempted = len(win.frames)
     failed = sum(not f.ok for f in win.frames)
@@ -304,7 +343,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda",
         f"ATE {judge.ate(outs, drv.trans):.4f} m; set-up {setup_s:.2f} s; "
         f"device {nvidia_smi() if device == 'cuda' else device}")
     log("[lio_bench] not compared: " + ", ".join(
-        f"{n} {numbers[n]:.6g}" for n in judge.NAMES if n not in lim))
+        f"{n} {numbers[n]:.6g}" for n in judge.NAMES + judge.COUNTS if n not in lim))
     if found:
         raise CellError(f"modules of JAX or the JAX package were loaded: {found}")
     dev = {"platform": "gpu" if device == "cuda" else str(device),
@@ -318,7 +357,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda",
         result["breakdown"] = {"device_ops": summary.device_ops,
                                "idle_gaps": summary.idle_gaps}
     checks = {n: {"value": _num(numbers[n]), "limit": float(lim[n])}
-              for n in judge.NAMES if n in lim}
+              for n in judge.NAMES + judge.COUNTS if n in lim}
     checks["failed_frames"] = {"value": failed, "limit": 0}
     result["checks"] = checks
     for line in lines + [f"failed_frames {failed} {'<=' if failed == 0 else '>'} 0"]:

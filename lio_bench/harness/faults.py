@@ -76,7 +76,24 @@ def early_stop(setattr) -> None:
     setattr(config, "from_dict", sooner)
 
 
-FAULTS = {f.__name__: f for f in (state_unchanged, half_batch, answer_altered, early_stop)}
+def half_capacity(setattr) -> None:
+    """The program holds half the map rows and half the stage-1 target
+    rows that the configuration states."""
+    from svnicp_tpu_torch import config
+
+    orig = config.from_dict
+
+    def halved(data):
+        cfg = orig(data)
+        icp = dataclasses.replace(cfg.icp, target_capacity=cfg.icp.target_capacity // 2)
+        vmap = dataclasses.replace(cfg.map, capacity=cfg.map.capacity // 2)
+        return dataclasses.replace(cfg, icp=icp, map=vmap)
+
+    setattr(config, "from_dict", halved)
+
+
+FAULTS = {f.__name__: f for f in (state_unchanged, half_batch, answer_altered, early_stop,
+                                  half_capacity)}
 
 
 class Patch:

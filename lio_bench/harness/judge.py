@@ -33,6 +33,24 @@ ends it. The numbers compared:
 - `map_mismatch`: the share of the map's rows at the pass's end that the
   reference map does not hold in the same voxel, in the same order and
   within 1 mm.
+
+Besides, where the configuration file states a size guarantee under
+`guarantees` (`map`: no map row shed for capacity; `target`: every map
+point within reach handed to stage 1), the run's own count is read on
+every frame of the pass with the limit 0 (`COUNTS`: `map_dropped`,
+`target_overflow`, the largest frame's reading). The reference runs at the
+configuration's capacities, so a program that sheds rows is matched shed
+for shed by `map_mismatch`; the counts catch it.
+
+The reference is the module that the configuration file names under
+`reference`: `lio_bench/reference/<name>.py` (`cell.reference_module`
+loads it). It exports what `_walk` calls, with the signatures and records
+of `svn_odometry`: `SUPPORTED` (the options it implements, at which values),
+`Precision`, `Ops`, `stage`, `VoxelMap`, `map_insert`, `map_query`,
+`register` (-> `Registration`), `filter_create`, `filter_predict`,
+`filter_update`, `imu_pairs`, `constant_velocity_guess`, `compose` and
+`so3_exp`. It imports nothing of the program and nothing of JAX; it may
+import another reference's shared parts.
 """
 
 from __future__ import annotations
@@ -43,10 +61,11 @@ import math
 import numpy as np
 import torch
 
-from lio_bench.reference import svn_odometry as ref
-
 NAMES = ("guess_gap_m", "pose_gap_m", "reg_t_gap_m", "reg_r_gap_rad",
          "var_gap_rel", "conv_t_gap_m", "conv_r_gap_rad", "stop_ratio", "map_mismatch")
+# the size guarantees a configuration may state, and the count each is read from
+GUARANTEED = {"map": "map_dropped", "target": "target_overflow"}
+COUNTS = tuple(GUARANTEED.values())
 
 
 @dataclasses.dataclass
@@ -64,6 +83,8 @@ class PassOutputs:
     map_points: np.ndarray    # [C,3]
     map_key: np.ndarray       # [C]
     map_valid: np.ndarray     # [C] bool
+    map_dropped: np.ndarray | None = None       # [n] rows shed for capacity
+    target_overflow: np.ndarray | None = None   # [n] rows the target could not take
 
     @property
     def frames(self) -> int:
@@ -96,24 +117,11 @@ def sample_frames(out: PassOutputs, seed: int, count: int) -> list[int]:
     return sorted([longest] + [rest[i] for i in pick])
 
 
-# the options the reference implements, at the only values it implements
-SUPPORTED = {
-    "icp": {"method": "svn", "residual": "point_to_point", "candidate_method": "bucketed",
-            "match_count": 0, "prior_information": False, "stein_kernel": True,
-            "svn_full_grad": False, "convergence_metric": "grad_norm",
-            "adaptive_prior": False, "use_minibatch": False},
-    "preprocess": {"deskew": False, "use_segmentation": False, "feature_select": False,
-                   "host_downsample": False, "quantize_upload": False},
-    "lio": {"cov_filter": "none", "use_const_cov": False, "init_from_motion": False,
-            "textbook_phi": False},
-    "map": {"sharded": False},
-}
-
-
-def check_supported(cfg: dict) -> None:
-    """Refuse a configuration whose options the reference does not
-    implement (a missing key means its default, which is the value above)."""
-    for group, opts in SUPPORTED.items():
+def check_supported(ref, cfg: dict) -> None:
+    """Refuse a configuration whose options the reference `ref` does not
+    implement (a missing key means its default, which is the value in
+    `ref.SUPPORTED`)."""
+    for group, opts in ref.SUPPORTED.items():
         for key, want in opts.items():
             got = cfg.get(group, {}).get(key, want)
             if got != want:
@@ -123,7 +131,12 @@ def check_supported(cfg: dict) -> None:
         raise ValueError(f"unsupported dtype {cfg.get('dtype')!r}")
 
 
-def map_mismatch(out: PassOutputs, vmap: ref.VoxelMap, tol: float = 1e-3) -> float:
+def guarantee_limits(guarantees: dict) -> dict:
+    """The counts a configuration's stated size guarantees hold to 0."""
+    return {name: 0 for key, name in GUARANTEED.items() if key in (guarantees or {})}
+
+
+def map_mismatch(out: PassOutputs, vmap, tol: float = 1e-3) -> float:
     """The share of rows the two maps do not hold alike: a row matches one
     of the other map's in the same voxel at the same place in the voxel's
     insertion order, within `tol` metres."""
@@ -146,9 +159,9 @@ def map_mismatch(out: PassOutputs, vmap: ref.VoxelMap, tol: float = 1e-3) -> flo
     return float(1.0 - matched / rows)
 
 
-def _walk(cfg: dict, drive, ops: ref.Ops, n: int, run: PassOutputs | None = None,
+def _walk(ref, cfg: dict, drive, ops, n: int, run: PassOutputs | None = None,
           sample=frozenset()):
-    """The reference's pipeline over the drive's first n frames. Without
+    """The reference `ref`'s pipeline over the drive's first n frames. Without
     `run` it is the program's stand-in: it registers every frame with its
     own stop rule and carries its own state, and returns its outputs
     (PassOutputs). With `run` it follows the run: the constant-velocity
@@ -244,6 +257,9 @@ def _walk(cfg: dict, drive, ops: ref.Ops, n: int, run: PassOutputs | None = None
             rows["align_ok"].append(ok)
     if run is not None:
         g["map_mismatch"] = map_mismatch(run, vmap)
+        for name in COUNTS:
+            got = getattr(run, name)
+            g[name] = int(np.max(got)) if got is not None and len(got) else 0
         g["_sampled"] = len(sample)
         return g
     return PassOutputs(**{k: np.asarray(v) for k, v in rows.items()},
@@ -252,11 +268,13 @@ def _walk(cfg: dict, drive, ops: ref.Ops, n: int, run: PassOutputs | None = None
                        map_valid=vmap.valid.cpu().numpy())
 
 
-def judge(cfg: dict, drive, out: PassOutputs, seed: int, check_frames: int,
-          device, prec: ref.Precision = ref.Precision()) -> dict:
-    """The numbers compared, for one pass (see the module docstring)."""
+def judge(ref, cfg: dict, drive, out: PassOutputs, seed: int, check_frames: int,
+          device, prec=None) -> dict:
+    """The numbers compared, for one pass, by the reference `ref` in `prec`
+    (float64 when not given; see the module docstring)."""
     sample = frozenset(sample_frames(out, seed, check_frames))
-    return _walk(cfg, drive, ref.Ops(prec, device), out.frames, run=out, sample=sample)
+    ops = ref.Ops(prec or ref.Precision(), device)
+    return _walk(ref, cfg, drive, ops, out.frames, run=out, sample=sample)
 
 
 def ate(out: PassOutputs, gt_t: np.ndarray) -> float:
@@ -270,20 +288,20 @@ def ate(out: PassOutputs, gt_t: np.ndarray) -> float:
     return float(np.sqrt((((a - ma) @ r.T + mb - b) ** 2).sum(1).mean()))
 
 
-def control_outputs(cfg: dict, drive, n: int, device,
-                    prec: ref.Precision = ref.Precision(torch.float32, tf32=True)
-                    ) -> PassOutputs:
-    """The reference put in the program's place: the first n frames of the
-    drive run through the reference's own pipeline (its registration and
-    stop rule every frame) in `prec`, as a run's outputs."""
-    return _walk(cfg, drive, ref.Ops(prec, device), n)
+def control_outputs(ref, cfg: dict, drive, n: int, device, prec=None) -> PassOutputs:
+    """The reference `ref` put in the program's place: the first n frames of
+    the drive run through the reference's own pipeline (its registration
+    and stop rule every frame) in `prec` (float32 with TF32 products when
+    not given), as a run's outputs; it counts no shed rows."""
+    ops = ref.Ops(prec or ref.Precision(torch.float32, tf32=True), device)
+    return _walk(ref, cfg, drive, ops, n)
 
 
 def verdict(numbers: dict, limits: dict) -> tuple[bool, list[str]]:
     """(every compared number within its limit, one `name number <= limit`
     line per number). A cell compares the numbers its limits file names."""
     ok, lines = True, []
-    for name in NAMES:
+    for name in NAMES + COUNTS:
         if name not in limits:
             continue
         v, lim = numbers[name], float(limits[name])

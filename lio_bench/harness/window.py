@@ -73,9 +73,12 @@ class Feeder:
                 self.pipe.feed_imu(t, acc, gyro)
 
     def scan(self, k: int):
-        """Hand scan k over; -> (pose read back or None, iterations, ok)."""
+        """Hand scan k over, a sweep's 4th column as its per-point times;
+        -> (pose read back or None, iterations, ok)."""
+        scan = self.drive.scans[k]
+        points, times = (scan, None) if scan.shape[1] == 3 else (scan[:, :3], scan[:, 3])
         with self._span("feed_scan"):
-            out = self.pipe.feed_scan(float(self.drive.times[k]), self.drive.scans[k],
+            out = self.pipe.feed_scan(float(self.drive.times[k]), points, timestamps=times,
                                       init_particles=self.particles[k])
         if out is None:
             return None, 0, False

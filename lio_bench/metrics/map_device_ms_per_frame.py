@@ -2,8 +2,10 @@
 device intervals (a CUDA event pair on the stream at each end, so the
 device's own clock) of the program's `svnicp.map.query` spans (the radius
 query that cuts the target, `voxmap.query_radius`) and `svnicp.map.insert`
-spans (`voxmap.insert`): their sorts and `cummax`. Summed over the traced
-stretch and divided by its frames (`svnicp.frame` spans). An interval
+spans (`voxmap.insert`): their sorts, and the binary searches on the
+sorted keys (`torch.searchsorted`) that find each row's voxel run and each
+queried voxel's rows. Summed over the traced stretch and divided by its
+frames (`svnicp.frame` spans). An interval
 counts from the stream reaching the layer's first operation to its last,
 so it holds any wait of the card for the host inside the layer. The probe
 records the program's spans (`runtime/profiling.py` `tracing()`); on the

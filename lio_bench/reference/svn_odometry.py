@@ -28,6 +28,20 @@ import math
 import numpy as np
 import torch
 
+# the options this reference implements, at the only values it implements
+# (the judge refuses a configuration that sets another: `check_supported`)
+SUPPORTED = {
+    "icp": {"method": "svn", "residual": "point_to_point", "candidate_method": "bucketed",
+            "match_count": 0, "prior_information": False, "stein_kernel": True,
+            "svn_full_grad": False, "convergence_metric": "grad_norm",
+            "adaptive_prior": False, "use_minibatch": False},
+    "preprocess": {"deskew": False, "use_segmentation": False, "feature_select": False,
+                   "host_downsample": False, "quantize_upload": False},
+    "lio": {"cov_filter": "none", "use_const_cov": False, "init_from_motion": False,
+            "textbook_phi": False},
+    "map": {"sharded": False},
+}
+
 INVALID_KEY = 2**31 - 1
 INT32_MAX = 2**31 - 1
 _U32 = 0xFFFFFFFF
@@ -223,10 +237,13 @@ def downsample(pts, valid, voxel: float, capacity: int):
 
 
 def stage(ops: Ops, scan: np.ndarray, cfg: dict):
-    """A raw scan (float32, sensor frame) -> (cropped, to_map, source), each
-    (points, valid): the extrinsic, the range crop, the 0.5-voxel stage
-    (twice the source capacity) and the 1.5-voxel stage of that."""
+    """A raw scan (float32, sensor frame; a 4th column of sweep times, where
+    there is one, is not read: with deskew off the times are ignored) ->
+    (cropped, to_map, source), each (points, valid): the extrinsic, the
+    range crop, the 0.5-voxel stage (twice the source capacity) and the
+    1.5-voxel stage of that."""
     pp, icp, lio = cfg["preprocess"], cfg["icp"], cfg["lio"]
+    scan = scan[:, :3]
     pts = ops.t(scan)
     r_ext = np.asarray(lio.get("extrinsic_R", np.eye(3).ravel()), float).reshape(3, 3)
     t_ext = np.asarray(lio.get("extrinsic_t", [0.0, 0.0, 0.0]), float)

@@ -1,6 +1,7 @@
 """Nothing the benchmark runs imports JAX or the JAX package, and its
-reference imports nothing of the program either: top-level module names
-compared whole (the port's name begins with the JAX package's)."""
+references import nothing of the program either (one may import another
+reference's shared parts): top-level module names compared whole (the
+port's name begins with the JAX package's)."""
 
 import ast
 import subprocess
@@ -13,14 +14,19 @@ BENCH = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "svnicp_tpu"}
 
 
-def top_level_imports(path: Path) -> set:
+def imports(path: Path) -> set:
+    """The absolute module names a source imports."""
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
-            names |= {a.name.split(".")[0] for a in node.names}
+            names |= {a.name for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names.add(node.module.split(".")[0])
+            names.add(node.module)
     return names
+
+
+def top_level_imports(path: Path) -> set:
+    return {name.split(".")[0] for name in imports(path)}
 
 
 SOURCES = sorted(p for p in BENCH.rglob("*.py") if "tests" not in p.parts)
@@ -34,8 +40,11 @@ def test_no_jax_and_no_jax_package(path):
 @pytest.mark.parametrize("path", sorted((BENCH / "reference").glob("*.py")),
                          ids=lambda p: p.name)
 def test_reference_imports_nothing_of_the_program(path):
-    assert top_level_imports(path) <= {"__future__", "dataclasses", "math", "numpy",
-                                       "torch"}
+    other = {n for n in imports(path) if n.split(".")[0] == "lio_bench"}
+    assert all(n == "lio_bench.reference" or n.startswith("lio_bench.reference.")
+               for n in other), other
+    assert top_level_imports(path) - {"lio_bench"} <= {"__future__", "dataclasses",
+                                                       "math", "numpy", "torch"}
 
 
 def test_the_name_check_compares_whole_top_level_names():

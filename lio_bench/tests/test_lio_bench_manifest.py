@@ -97,6 +97,7 @@ def test_frozen_configs_load_through_the_port():
     from lio_bench.harness import judge
 
     for c in MAN["configs"]:
-        d = cell.load_yaml(ROOT / c["file"])["pipeline"]
+        doc = cell.load_yaml(ROOT / c["file"])
+        d = doc["pipeline"]
         assert config.from_dict(d).dtype == "float32"
-        judge.check_supported(d)
+        judge.check_supported(cell.reference_module(doc["reference"]), d)

@@ -2,7 +2,8 @@
 map and registration target at 2^20 rows, fed live at 10 Hz) on the CPU at
 a cut size, the look for a card skipped: the map and the target cut alike,
 so they hold the cut drive whole as 2^20 rows hold the live drive on the
-card. The sound timed path is `correct`; each fault of `harness/faults.py`
+card. The sound timed path is `correct`, and reads 0 for the size
+guarantees the configuration states; each fault of `harness/faults.py`
 planted under it, and the control (the plain reference in TF32 put in the
 program's place), are not. The untraced line reports the cell's end-to-end
 metrics, and a traced one leaves the stage-1 roofline out on the CPU,
@@ -59,6 +60,34 @@ def test_a_broken_timed_path_is_not_correct(fault, monkeypatch, cut):
     faults.FAULTS[fault](monkeypatch.setattr)
     r = cell.run_cell(NAME, SEED, SECONDS, False, device="cpu", overrides=cut)
     assert r["correct"] is False, r["checks"]
+
+
+def test_the_stated_size_guarantees_are_checked(sound):
+    """SubT's configuration states that no map row is shed and that the
+    target takes every map point in reach: both counts are checked, on
+    every frame, with the limit 0; GEODE's states neither."""
+    for name in ("map_dropped", "target_overflow"):
+        assert sound["checks"][name] == {"value": 0, "limit": 0.0}
+    assert not {"map_dropped", "target_overflow"} & set(
+        cell.limits(cell.find_cell("geode_alpha.live10hz")))
+
+
+def test_half_the_capacity_sheds_map_rows_and_is_not_correct(cut):
+    """Map and target cut to 12,288 rows, which the cut drive fills to ~65%
+    (~8,000 rows) as the live drive fills ~66% of 2^20 on the card: the
+    sound run sheds nothing, and the program at half the stated capacities
+    sheds map rows, which the check of the map guarantee catches."""
+    cut["pipeline"]["icp"]["target_capacity"] = cut["pipeline"]["map"]["capacity"] = 12288
+    r = cell.run_cell(NAME, SEED, SECONDS, False, device="cpu", overrides=copy.deepcopy(cut))
+    assert r["correct"] is True, r["checks"]
+    assert r["checks"]["map_dropped"]["value"] == r["checks"]["target_overflow"]["value"] == 0
+    patch = faults.Patch()
+    faults.half_capacity(patch.setattr)
+    try:
+        r = cell.run_cell(NAME, SEED, SECONDS, False, device="cpu", overrides=cut)
+    finally:
+        patch.undo()
+    assert r["correct"] is False and r["checks"]["map_dropped"]["value"] > 0, r["checks"]
 
 
 def test_the_tf32_control_is_not_correct(cut):
